@@ -8,8 +8,12 @@ reference's ``jax.lax.top_k``); the fused M-step kernel (K3) divides and
 reseeds empty clusters.  On CPU tensors the same calls run the kernels'
 plain versions (``kernels/ops.py``).
 
-The reference's unfused A/B path (``fused=False``) distances through the
-``pairwise_l2`` kernel, which a later slice ports; here it raises.
+The unfused A/B path (``fused=False``, ``BuildConfig(fused_assign=False)``)
+is the reference's legacy loop: the E-step is ``ops.kmeans_assign`` (the
+``pairwise_l2`` kernel B5 plus argmin on the device), the M-step a host
+float64 scatter-add, the reseed a stable host argsort; centroids live on
+the host between iterations.
+
 ``balanced_hierarchical_kmeans`` is the SPANN-style recursive splitter that
 bounds every leaf at ``max_cluster_size``.
 """
@@ -20,6 +24,21 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
+
+
+def kmeans_assign_step(xd: torch.Tensor, cents: np.ndarray,
+                       x: np.ndarray):
+    """One unfused Lloyd data pass: (assign (N,) int64, min_dist (N,) f32,
+    sums (K, D) f64, counts (K,) int64).  ``xd`` is ``x`` on the device;
+    the sums are a host float64 scatter-add in index order, as the
+    reference's ``np.add.at``."""
+    k, d = cents.shape
+    a, md = kops.kmeans_assign(xd, torch.from_numpy(cents).to(xd.device))
+    assign = a.cpu().numpy().astype(np.int64)
+    sums = np.zeros((k, d), np.float64)
+    np.add.at(sums, assign, x)
+    counts = np.bincount(assign, minlength=k)
+    return assign, md.cpu().numpy(), sums, counts
 
 
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
@@ -33,9 +52,19 @@ def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
     rng = np.random.default_rng(seed)
     cents = x[rng.choice(n, size=k, replace=False)].astype(np.float32)
     xd = torch.from_numpy(x).to(dev)
-    cd = torch.from_numpy(np.ascontiguousarray(cents)).to(dev)
     if not fused:
-        kops.kmeans_assign(xd, cd)                   # raises: pairwise_l2
+        cents = cents.copy()
+        assign = np.zeros(n, np.int64)
+        mind = np.zeros(n, np.float32)
+        for _ in range(max(1, iters)):
+            assign, mind, sums, counts = kmeans_assign_step(xd, cents, x)
+            nonz = counts > 0
+            cents[nonz] = (sums[nonz] / counts[nonz, None]).astype(np.float32)
+            if (~nonz).any():   # reseed empty clusters, worst-served first
+                far = np.argsort(-mind, kind="stable")[: int((~nonz).sum())]
+                cents[~nonz] = x[far]
+        return cents, assign.astype(np.int32), float(mind.sum())
+    cd = torch.from_numpy(np.ascontiguousarray(cents)).to(dev)
     a = md = None
     for _ in range(max(1, iters)):
         a, md, sums, counts = kops.kmeans_assign_update(xd, cd)
@@ -108,9 +137,10 @@ def enforce_size_bound(
 ) -> np.ndarray:
     """Split Voronoi cells larger than ``bound`` until none remain.
 
-    Each round reassigns all points with the fused kernel (its counts are
-    the cell sizes) and 2-way-splits every oversized cell; a cell's points
-    are taken in index order, as the reference's ``x[a == c]``.
+    Each round reassigns all points (fused: the kernel's counts are the
+    cell sizes; unfused: ``ops.kmeans_assign`` and a host bincount) and
+    2-way-splits every oversized cell; a cell's points are taken in index
+    order, as the reference's ``x[a == c]``.
     """
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
@@ -118,11 +148,14 @@ def enforce_size_bound(
     xd = torch.from_numpy(x).to(dev)
     for rnd in range(max_rounds):
         cd = torch.from_numpy(cents).to(dev)
-        if not fused:
-            kops.kmeans_assign(xd, cd)               # raises: pairwise_l2
-        a, _, _, counts = kops.kmeans_assign_update(xd, cd)
-        a = a.cpu().numpy()
-        counts = counts.cpu().numpy().astype(np.int64)
+        if fused:
+            a, _, _, counts = kops.kmeans_assign_update(xd, cd)
+            a = a.cpu().numpy()
+            counts = counts.cpu().numpy().astype(np.int64)
+        else:
+            a, _ = kops.kmeans_assign(xd, cd)
+            a = a.cpu().numpy()
+            counts = np.bincount(a, minlength=cents.shape[0])
         over = np.nonzero(counts > bound)[0]
         if over.size == 0:
             break

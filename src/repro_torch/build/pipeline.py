@@ -3,7 +3,8 @@
 
 Stage 1 — coarse clustering: the corpus is split into ``coarse_per_task``
 chunks; each task runs balanced hierarchical k-means (every Lloyd step on
-the fused K2/K3 kernels) and the merged centroid set is split until every
+the fused K2/K3 kernels, or with ``fused_assign=False`` on the unfused
+``pairwise_l2`` path) and the merged centroid set is split until every
 Voronoi cell fits a posting list.  Stage 2 — closure multi-cluster
 assignment per shard (elastic tasks, shard-granular checkpoints), then the
 fixed-size posting build.  Stage 3 — LLSP training from logged queries.
@@ -46,9 +47,9 @@ class BuildConfig:
     kmeans_iters: int = 8
     seed: int = 0
     llsp: Optional[LLSPConfig] = None
-    fused_assign: bool = True     # False = the reference's unfused A/B path,
-                                  # which needs the (not yet ported)
-                                  # pairwise_l2 kernel and raises
+    fused_assign: bool = True     # False = the reference's unfused A/B
+                                  # path: pairwise_l2 tile + argmin, host
+                                  # float64 M-step
 
 
 @dataclasses.dataclass

@@ -24,15 +24,18 @@ def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
-def ivf_index(centroids, postings, posting_ids, *, q8=None, qscale=None,
-              qnorm2=None, device: DeviceLike = None) -> IVFIndex:
+def ivf_index(centroids, postings, posting_ids, *, group_centroids=None,
+              group_members=None, q8=None, qscale=None, qnorm2=None,
+              device: DeviceLike = None) -> IVFIndex:
     """An :class:`IVFIndex` from the reference's arrays, including the
-    optional int8 residual payload."""
+    optional two-level group quantizer and int8 residual payload."""
     dev = resolve_device(device)
     opt = lambda a, dt: None if a is None else _tensor(a, dt, dev)
     return IVFIndex(_tensor(centroids, np.float32, dev),
                     _tensor(postings, np.float32, dev),
                     _tensor(posting_ids, np.int32, dev),
+                    group_centroids=opt(group_centroids, np.float32),
+                    group_members=opt(group_members, np.int32),
                     q8=opt(q8, np.int8), qscale=opt(qscale, np.float32),
                     qnorm2=opt(qnorm2, np.float32))
 

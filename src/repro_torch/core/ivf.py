@@ -3,8 +3,10 @@
 
 ``IVFIndex`` is a dataclass of tensors: ``centroids`` (C, D), fixed-size
 padded posting lists ``postings`` (C, L, D) with ``posting_ids`` (C, L)
-(-1 = padding slot), and the optional int8 residual payload (``q8``,
-``qscale``, ``qnorm2``) of ``core/quantize.py``.
+(-1 = padding slot), the optional two-level centroid quantizer
+(``group_centroids`` (G, D), ``group_members`` (G, Cg), -1 pad) of
+:func:`make_group_quantizer`, and the optional int8 residual payload
+(``q8``, ``qscale``, ``qnorm2``) of ``core/quantize.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ class IVFIndex:
     centroids: torch.Tensor            # (C, D) f32
     postings: torch.Tensor             # (C, L, D) f32 (pad: repeat last)
     posting_ids: torch.Tensor          # (C, L) int32, -1 = padding slot
+    group_centroids: Optional[torch.Tensor] = None   # (G, D) f32
+    group_members: Optional[torch.Tensor] = None     # (G, Cg) int32, -1 pad
     q8: Optional[torch.Tensor] = None          # (C, L, D) int8 residuals
     qscale: Optional[torch.Tensor] = None      # (C, 1, 1) f32
     qnorm2: Optional[torch.Tensor] = None      # (C, L) f32 s^2*||r8||^2
@@ -41,6 +45,12 @@ class IVFIndex:
     @property
     def device(self) -> torch.device:
         return self.centroids.device
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (getattr(self, f.name)
+                             for f in dataclasses.fields(self))
+                   if t is not None)
 
     def to(self, device) -> "IVFIndex":
         move = lambda t: None if t is None else t.to(device)
@@ -77,6 +87,25 @@ def build_postings(x: np.ndarray, assign: np.ndarray, n_clusters: int,
     for c in np.nonzero((fill > 0) & (fill < cluster_len))[0]:
         postings[c, fill[c]:] = postings[c, fill[c] - 1]
     return postings, ids
+
+
+def make_group_quantizer(centroids: np.ndarray, n_groups: int,
+                         seed: int = 0, *, device=None
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Two-level centroid quantizer: (group centroids (G, D) f32, members
+    (G, Cg) int32, -1 pad), the members of each group in centroid order.
+    Groups come from the unfused k-means, as in the reference."""
+    from repro_torch.build.kmeans import kmeans
+
+    gc, gassign, _ = kmeans(centroids, n_groups, iters=10, seed=seed,
+                            fused=False, device=device)
+    sizes = np.bincount(gassign, minlength=n_groups)
+    members = np.full((n_groups, int(sizes.max())), -1, dtype=np.int32)
+    fill = np.zeros(n_groups, dtype=np.int64)
+    for cid, g in enumerate(gassign):
+        members[g, fill[g]] = cid
+        fill[g] += 1
+    return gc.astype(np.float32), members
 
 
 def brute_force_topk(x: torch.Tensor, queries: torch.Tensor, k: int,

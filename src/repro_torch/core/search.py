@@ -1,16 +1,34 @@
-"""Helmsman online search pieces (port of the plan-stage parts of
-``repro.core.search``): the search config, the one-level centroid scan and
-the per-query nprobe decision.  The resident ``serve_step`` /
-``serve_leveled`` paths and the sharded engines come in later slices."""
+"""Helmsman online search (port of ``repro.core.search``).
+
+Per query batch:
+
+  1. the LLSP router picks the level (max nprobe);
+  2. the centroid scan returns the nmax nearest centroids (brute force, or
+     the two-level group quantizer);
+  3. the level pruner refines nprobe;
+  4. one batched posting scan: the fused scan kernels (f32 ``ivf_scan_topk``
+     or q8 ``ivf_scan_q8_topk``) keep (B, ~2k) unique-by-id candidates, or
+     the legacy scan writes (B, P, L) distances (``fused_topk=False``);
+  5. dedup + global top-k merge.
+
+``serve_step`` runs the whole batch at ``nprobe_max``; ``serve_leveled``
+routes on the host and scans each level's bucket at that level's bound.
+The sharded engines come in a later slice.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
+
 from . import llsp as llsp_mod
-from .distance import squared_l2, topk_smallest
+from .distance import (
+    INF, dedup_topk, merge_candidate_topk, squared_l2, topk_smallest,
+)
 from .ivf import IVFIndex
 from .spann_rules import fixed_eps_nprobe
 
@@ -22,10 +40,17 @@ class SearchConfig:
     pruning: str = "none"         # "llsp" | "fixed" | "none"
     eps: float = 0.12             # fixed-eps baseline knob (Eq. 1)
     n_ratio: int = 32
-    use_kernel: bool = True       # fused scan kernel (False: the packed-
-                                  # domain oracle, an explicit A/B arm)
+    use_kernel: bool = True       # the scan kernels (False: their oracles,
+                                  # an explicit A/B arm)
+    two_level: bool = False       # group quantizer for the centroid scan
+    n_groups_probe: int = 8
+    fused_topk: bool = True       # candidate-compressed scan; False = the
+                                  # legacy (B, P, L) distance path
     n_cand: int = 0               # candidates per query the scan keeps
                                   # (0 = auto: ~2k rounded up to 8)
+    tier: str = "f32"             # first-pass payload: "f32" scans
+                                  # index.postings, "q8" the attached int8
+                                  # residuals (quantize.attach_quantized)
 
 
 def _auto_ncand(k: int) -> int:
@@ -33,10 +58,40 @@ def _auto_ncand(k: int) -> int:
     return -(-max(2 * k, 16) // 8) * 8
 
 
-def centroid_scan(index: IVFIndex, queries: torch.Tensor, nmax: int
+def _fused_scan_candidates(cfg: SearchConfig, kernel_call, ref_call):
+    """Run the scan stage at width n_cand (kernel or oracle per
+    ``cfg.use_kernel``), then merge to ``cfg.k``.  ``kernel_call`` and
+    ``ref_call`` take k2 and return ((B, k2) dists, (B, k2) ids)."""
+    k2 = cfg.n_cand or _auto_ncand(cfg.k)
+    cd, ci = kernel_call(k2) if cfg.use_kernel else ref_call(k2)
+    return merge_candidate_topk(cd, ci, cfg.k)
+
+
+def centroid_scan(index: IVFIndex, queries: torch.Tensor, nmax: int,
+                  cfg: Optional[SearchConfig] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-nmax centroids: (cdists (B, nmax) ascending, cids (B, nmax))."""
-    return topk_smallest(squared_l2(queries, index.centroids), nmax)
+    """Top-nmax centroids: (cdists (B, nmax) ascending, cids (B, nmax)
+    int32).  With ``cfg.two_level`` and a group quantizer on the index, only
+    the members of the ``n_groups_probe`` nearest groups are ranked (padded
+    with (+inf, -1) when they number fewer than nmax)."""
+    if cfg is not None and cfg.two_level \
+            and index.group_centroids is not None:
+        gd = squared_l2(queries, index.group_centroids)         # (B, G)
+        _, gsel = topk_smallest(gd, cfg.n_groups_probe)         # (B, g)
+        b = queries.shape[0]
+        cand = index.group_members[gsel].reshape(b, -1)         # (B, M)
+        cvecs = index.centroids[torch.clamp_min(cand, 0).long()]
+        d = torch.sum((cvecs - queries[:, None, :]) ** 2, dim=-1)
+        d = torch.where(cand < 0, INF, d)
+        vals, pos = topk_smallest(d, min(nmax, d.shape[1]))
+        cids = torch.gather(cand, 1, pos).to(torch.int32)
+        if cids.shape[1] < nmax:                  # tiny-group configs
+            padn = nmax - cids.shape[1]
+            cids = torch.cat([cids, cids.new_full((b, padn), -1)], dim=1)
+            vals = torch.cat([vals, vals.new_full((b, padn), INF)], dim=1)
+        return vals, cids
+    vals, cids = topk_smallest(squared_l2(queries, index.centroids), nmax)
+    return vals, cids.to(torch.int32).contiguous()
 
 
 def decide_nprobe(cfg: SearchConfig,
@@ -56,3 +111,113 @@ def decide_nprobe(cfg: SearchConfig,
     level = llsp_mod.route(llsp_params, queries, topk_req)
     return llsp_mod.prune(llsp_params, level, queries, topk_req, cdists,
                           cfg.n_ratio)
+
+
+def _scan_and_rank(index: IVFIndex, queries: torch.Tensor,
+                   cids: torch.Tensor, probe_mask: torch.Tensor,
+                   cfg: SearchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posting scan + top-k: ((B, k) dists, (B, k) ids).
+
+    ``cfg.tier`` picks the payload (f32 postings or the attached q8
+    residuals) and ``cfg.fused_topk`` the data path: the fused scan keeps
+    (B, n_cand) unique-by-id candidates and a cheap merge takes k; the
+    legacy path writes (B, P, L) distances, masks pad ids and runs a dedup
+    top-k over P * L columns."""
+    from repro_torch.kernels import ref as kref
+
+    b = queries.shape[0]
+    if cfg.tier == "q8":
+        if index.q8 is None:
+            raise ValueError(
+                "SearchConfig(tier='q8') needs an index with the quantized "
+                "payload attached; see core.quantize.attach_quantized")
+        if cfg.fused_topk:
+            args = (index.q8, index.qscale, index.qnorm2, index.centroids,
+                    index.posting_ids, cids, probe_mask, queries)
+            return _fused_scan_candidates(
+                cfg, lambda k2: kops.ivf_scan_q8_topk(*args, k2=k2),
+                lambda k2: kref.ivf_scan_q8_topk_ref(*args, k2=k2))
+        from .quantize import QuantizedPostings, ivf_scan_quantized
+
+        qp = QuantizedPostings(q8=index.q8, scale=index.qscale,
+                               norm2=index.qnorm2)
+        dists = ivf_scan_quantized(qp, index.centroids, cids, probe_mask,
+                                   queries)
+    elif cfg.fused_topk:
+        args = (index.postings, index.posting_ids, cids, probe_mask, queries)
+        return _fused_scan_candidates(
+            cfg, lambda k2: kops.ivf_scan_topk(*args, k2=k2),
+            lambda k2: kref.ivf_scan_topk_ref(*args, k2=k2))
+    else:
+        scan = kops.ivf_scan if cfg.use_kernel else kref.ivf_scan_ref
+        dists = scan(index.postings, cids, probe_mask, queries)
+    ids = index.posting_ids[torch.clamp_min(cids, 0).long()]     # (B, P, L)
+    dists = torch.where(ids < 0, INF, dists)
+    return dedup_topk(dists.reshape(b, -1), ids.reshape(b, -1), cfg.k)
+
+
+def serve_step(index: IVFIndex, llsp_params: Optional[llsp_mod.LLSPParams],
+               queries: torch.Tensor, topk_req: torch.Tensor,
+               cfg: SearchConfig) -> dict:
+    """Single-device search of one batch on the index's device: a dict of
+    ``ids`` (B, k), ``dists`` (B, k) and ``nprobe`` (B,) tensors."""
+    nmax = cfg.nprobe_max
+    cdists, cids = centroid_scan(index, queries, nmax, cfg)
+    nprobe = decide_nprobe(cfg, llsp_params, queries, topk_req, cdists)
+    probe_mask = (torch.arange(nmax, device=queries.device)[None, :]
+                  < nprobe[:, None]) & (cids >= 0)
+    dists, ids = _scan_and_rank(index, queries, cids, probe_mask, cfg)
+    return {"ids": ids, "dists": dists, "nprobe": nprobe}
+
+
+# --------------------------------------------------------------------------
+# leveled serving: each LLSP level scans its bucket at that level's bound
+# --------------------------------------------------------------------------
+def _serve_at_level(index, llsp_params, queries, topk_req, level_idx: int,
+                    bound: int, cfg: SearchConfig) -> dict:
+    nmax_feat = max(bound, cfg.n_ratio + 1)   # pruner features need n_ratio+1
+    cdists, cids = centroid_scan(index, queries, nmax_feat, cfg)
+    level = torch.full((queries.shape[0],), level_idx, dtype=torch.int32,
+                       device=queries.device)
+    nprobe = llsp_mod.prune(llsp_params, level, queries, topk_req, cdists,
+                            cfg.n_ratio)
+    nprobe = torch.clamp_max(nprobe, bound)
+    cids = cids[:, :bound].contiguous()
+    probe_mask = (torch.arange(bound, device=queries.device)[None, :]
+                  < nprobe[:, None]) & (cids >= 0)
+    dists, ids = _scan_and_rank(index, queries, cids, probe_mask, cfg)
+    return {"ids": ids, "dists": dists, "nprobe": nprobe}
+
+
+def serve_leveled(index: IVFIndex, llsp_params: llsp_mod.LLSPParams,
+                  queries, topk_req, cfg: SearchConfig, pad: int = 64
+                  ) -> dict:
+    """Route on the host, then scan each level's bucket of queries with
+    nprobe capped at that level's bound.  Buckets are padded to multiples
+    of ``pad`` by repeating their first query, so every row is computed as
+    in the reference.  Returns numpy ``ids``, ``dists``, ``nprobe`` and the
+    routed ``levels``."""
+    dev = index.device
+    q = np.asarray(queries, dtype=np.float32)
+    tk = np.asarray(topk_req, dtype=np.int32)
+    b = q.shape[0]
+    qd = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+    tkd = torch.from_numpy(np.ascontiguousarray(tk)).to(dev)
+    lv = llsp_mod.route(llsp_params, qd, tkd).cpu().numpy()
+    bounds = llsp_params.levels.cpu().numpy()
+    out_d = np.full((b, cfg.k), np.inf, np.float32)
+    out_i = np.full((b, cfg.k), -1, np.int32)
+    out_np = np.zeros((b,), np.int32)
+    for li in range(int(bounds.shape[0])):
+        sel = np.nonzero(lv == li)[0]
+        if sel.size == 0:
+            continue
+        padded = -(-sel.size // pad) * pad
+        rows = torch.from_numpy(np.concatenate(
+            [sel, np.full(padded - sel.size, sel[0])])).to(dev)
+        res = _serve_at_level(index, llsp_params, qd[rows], tkd[rows], li,
+                              int(bounds[li]), cfg)
+        out_d[sel] = res["dists"].cpu().numpy()[: sel.size]
+        out_i[sel] = res["ids"].cpu().numpy()[: sel.size]
+        out_np[sel] = res["nprobe"].cpu().numpy()[: sel.size]
+    return {"ids": out_i, "dists": out_d, "nprobe": out_np, "levels": lv}

@@ -1,12 +1,34 @@
-"""What the q8 scan kernel shares with the f32 scan (port of the helpers in
-``repro.kernels.ivf_scan``): the deduped probe plan and the top-k2 merge
-rule.  The f32 kernel ``ivf_scan_topk`` itself is ported in a later slice.
+"""Fused f32 posting scans (port of ``repro.kernels.ivf_scan``).
+
+* The deduped probe plan (:func:`plan_tile_probes`) and the top-k2 merge
+  rule (:func:`extract_topk`), which the q8 scan shares.
+* B2 ``ivf_scan_topk``, the candidate-compressed scan: per tile of ``bq``
+  queries, every planned (query, row) distance in the norm form
+  ||q||^2 - 2 q.p + ||p||^2 (clamped >= 0), merged into a running top-k2
+  unique by id.  :func:`ivf_scan_topk_cuda` launches
+  ``csrc/ivf_scan_topk.cu``; :func:`ivf_scan_topk_plain` computes the same
+  function with the same plan and :func:`extract_topk`.
+* B6a ``ivf_scan``, the legacy scan: (B, P, L) distances, masked probes
+  +inf.  :func:`ivf_scan_cuda` launches ``csrc/ivf_scan.cu``;
+  :func:`ivf_scan_plain` is the plain version.
+
+``kernels/ops.py`` chooses between kernel and plain version by the device
+of the tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.distance import INF
+
+from . import cuda_lib
+from .ref import ivf_scan_ref
+
+BQ = 8                      # queries per tile of the f32 fused scan
+MAX_K2 = 256
+MAX_D = 1024
+MAX_L = 1024
+MAX_SMEM = 232_448          # bytes of shared memory one block may use
 
 
 def plan_tile_probes(cids: torch.Tensor, mask: torch.Tensor, bq: int,
@@ -79,3 +101,174 @@ def extract_topk(cat_d: torch.Tensor, cat_i: torch.Tensor, k2: int
         cat_d = torch.where(kill, INF, cat_d)
     return (torch.stack(out_d, dim=1),
             torch.stack(out_i, dim=1).to(torch.int32))
+
+
+def _pad_tile(cids, mask, queries, bq):
+    """Pad the batch to a multiple of ``bq`` with dead queries (zero
+    vectors, every probe masked), as the reference's wrapper does."""
+    b = queries.shape[0]
+    padb = (-b) % bq
+    mask = mask.bool()
+    if padb:
+        queries = torch.cat([queries, queries.new_zeros((padb,
+                                                         queries.shape[1]))])
+        cids = torch.cat([cids, cids.new_zeros((padb, cids.shape[1]))])
+        mask = torch.cat([mask, mask.new_zeros((padb, mask.shape[1]))])
+    return cids, mask, queries
+
+
+def ivf_scan_topk_plain(postings, posting_ids, cids, mask, queries, *,
+                        k2: int, bq: int = BQ):
+    """Plain torch version of B2: ((B, k2) ascending dists, (B, k2) ids).
+
+    The kernel's structure in tensor form: the tile plan, every planned
+    (query, row) distance, rows with id < 0 or unselected queries +inf
+    (a select after the product, so a NaN payload in a dead row never
+    reaches the merge), then the :func:`extract_topk` merge rule."""
+    b = queries.shape[0]
+    r_count, l, _ = postings.shape
+    cids, mask, q = _pad_tile(cids, mask, queries.to(torch.float32), bq)
+    nb = q.shape[0] // bq
+    tile_cids, qsel = plan_tile_probes(cids, mask, bq, r_count)
+    s_len = tile_cids.shape[1]
+    rows = tile_cids.long()                                   # (nb, S)
+    g = postings[rows].to(torch.float32)                      # (nb,S,L,D)
+    qt = q.reshape(nb, bq, -1)
+    d = (torch.sum(qt * qt, dim=-1)[:, :, None, None]
+         - 2.0 * torch.einsum("tjd,tsld->tjsl", qt, g)
+         + torch.sum(g * g, dim=-1)[:, None, :, :])           # (nb,bq,S,L)
+    d = torch.clamp_min(d, 0.0)
+    ids = posting_ids[rows]                                   # (nb, S, L)
+    live = (qsel.permute(0, 2, 1) != 0)[:, :, :, None] \
+        & (ids >= 0)[:, None, :, :]
+    d = torch.where(live, d, INF).reshape(nb * bq, s_len * l)
+    ids = ids[:, None].expand(nb, bq, s_len, l).reshape(nb * bq, s_len * l)
+    od, oi = extract_topk(d, ids, k2)
+    return od[:b], oi[:b]
+
+
+def _require(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what} kernel: {msg}")
+
+
+def _check_common(what, tensors: dict, dev) -> None:
+    _require(dev.type == "cuda", what, f"needs CUDA tensors, got {dev}")
+    for name, t in tensors.items():
+        _require(t.device == dev, what, f"{name} on {t.device}, "
+                                        f"queries on {dev}")
+        _require(t.is_contiguous(), what, f"{name} is not contiguous")
+    _require(tensors["postings"].dtype == torch.float32, what,
+             "postings must be f32")
+    _require(tensors["queries"].dtype == torch.float32, what,
+             "queries must be f32")
+    _require(tensors["mask"].dtype == torch.bool, what, "mask must be bool")
+    post = tensors["postings"]
+    _require(post.dim() == 3 and post.shape[0] > 0, what,
+             f"postings shape {tuple(post.shape)}")
+    _require(post.data_ptr() % 16 == 0, what, "postings not 16-byte aligned")
+    r_count, l, d = post.shape
+    b = tensors["queries"].shape[0]
+    cids = tensors["cids"]
+    _require(cids.dim() == 2 and cids.shape[0] == b, what, "cids shape")
+    _require(tensors["mask"].shape == cids.shape, what, "mask shape")
+    _require(tensors["queries"].shape == (b, d), what, "queries shape")
+    _require(d % 4 == 0 and 0 < d <= MAX_D, what,
+             f"D={d} (multiple of 4, <= {MAX_D})")
+    _require(0 < l <= MAX_L, what, f"L={l} outside [1, {MAX_L}]")
+
+
+def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
+                       k2: int, bq: int = BQ):
+    """Launch B2 on the tensors' CUDA device (current stream).
+
+    Takes postings (R, L, D) f32, posting_ids (R, L) int32, cids (B, P)
+    int, mask (B, P) bool, queries (B, D) f32, all contiguous on one CUDA
+    device.  Limits: bq == 8, 1 <= k2 <= 256, D % 4 == 0 and D <= 1024,
+    L <= 1024, postings 16-byte aligned, and the block's shared memory (a
+    chunk of rows plus the tile's queries and buffers) within 227 KB.
+    Anything else raises; nothing falls back to the plain version."""
+    what = "ivf_scan_topk"
+    dev = queries.device
+    _check_common(what, dict(postings=postings, posting_ids=posting_ids,
+                             cids=cids, mask=mask, queries=queries), dev)
+    r_count, l, d = postings.shape
+    _require(posting_ids.dtype == torch.int32
+             and posting_ids.shape == (r_count, l), what,
+             "posting_ids must be (R, L) int32")
+    _require(bq == BQ, what, f"bq={bq}: the kernel tiles {BQ} queries")
+    _require(1 <= k2 <= MAX_K2, what, f"k2={k2} outside [1, {MAX_K2}]")
+    lib = cuda_lib.library()
+    smem = lib.ivf_scan_topk_smem_bytes(l, d, k2)
+    _require(smem <= MAX_SMEM, what, f"needs {smem} B of shared memory")
+    b = queries.shape[0]
+    if b == 0:
+        return (torch.empty((0, k2), dtype=torch.float32, device=dev),
+                torch.empty((0, k2), dtype=torch.int32, device=dev))
+    pc, pm, pq = _pad_tile(cids, mask, queries, bq)
+    tile_cids, qsel = plan_tile_probes(pc, pm, bq, r_count)
+    out_d, out_i = ivf_scan_topk_planned(postings, posting_ids, tile_cids,
+                                         qsel, pq, k2=k2)
+    return out_d[:b], out_i[:b]
+
+
+def ivf_scan_topk_planned(postings, posting_ids, tile_cids, qsel, queries,
+                          *, k2: int):
+    """Launch B2 on a prebuilt plan: ``tile_cids`` (B/8, S) and ``qsel``
+    (B/8, S, 8) from :func:`plan_tile_probes`, ``queries`` (B, D) padded to
+    whole tiles.  The inputs' limits are checked by
+    :func:`ivf_scan_topk_cuda`; this checks only the plan's shapes.
+    Returns the padded ((B, k2), (B, k2))."""
+    what = "ivf_scan_topk"
+    dev = queries.device
+    nb, s_len = tile_cids.shape
+    _, l, d = postings.shape
+    _require(queries.shape == (nb * BQ, d) and qsel.shape == (nb, s_len, BQ)
+             and tile_cids.dtype == torch.int32
+             and qsel.dtype == torch.int32, what, "plan shapes")
+    tile_cids = tile_cids.contiguous()
+    qsel = qsel.contiguous()
+    queries = queries.contiguous()
+    out_d = torch.empty((nb * BQ, k2), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nb * BQ, k2), dtype=torch.int32, device=dev)
+    rc = cuda_lib.library().ivf_scan_topk_launch(
+        postings.data_ptr(), posting_ids.data_ptr(), tile_cids.data_ptr(),
+        qsel.data_ptr(), queries.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), nb, s_len, l, d, k2, cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, what)
+    cuda_lib.LAUNCHES.add(what)
+    return out_d, out_i
+
+
+def ivf_scan_plain(postings, cids, mask, queries) -> torch.Tensor:
+    """Plain torch version of B6a: (B, P, L) f32, masked probes +inf.  The
+    kernel computes each (query, probe) block in the norm form, which is
+    exactly the oracle's formula."""
+    return ivf_scan_ref(postings, cids, mask, queries)
+
+
+def ivf_scan_cuda(postings, cids, mask, queries) -> torch.Tensor:
+    """Launch B6a on the tensors' CUDA device (current stream).
+
+    Takes postings (C, L, D) f32, cids (B, P) int32 (clamped to [0, C) in
+    the kernel), mask (B, P) bool, queries (B, D) f32, contiguous on one
+    CUDA device, with D % 4 == 0, D <= 1024, L <= 1024 and postings 16-byte
+    aligned.  Anything else raises; nothing falls back."""
+    what = "ivf_scan"
+    dev = queries.device
+    _check_common(what, dict(postings=postings, cids=cids, mask=mask,
+                             queries=queries), dev)
+    _require(cids.dtype == torch.int32, what, "cids must be int32")
+    c, l, d = postings.shape
+    b, p = cids.shape
+    lib = cuda_lib.library()
+    out = torch.empty((b, p, l), dtype=torch.float32, device=dev)
+    if b * p == 0:
+        return out
+    rc = lib.ivf_scan_launch(postings.data_ptr(), cids.data_ptr(),
+                             mask.data_ptr(), queries.data_ptr(),
+                             out.data_ptr(), b, c, p, l, d,
+                             cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, what)
+    cuda_lib.LAUNCHES.add(what)
+    return out

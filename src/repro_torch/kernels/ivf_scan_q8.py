@@ -94,14 +94,32 @@ def ivf_scan_q8_topk_cuda(q8, scale, norm2, centroids, posting_ids, cids,
     lib = cuda_lib.library()
     smem = lib.ivf_scan_q8_topk_smem_bytes(l, d, k2)
     _require(smem <= MAX_SMEM, f"needs {smem} B of shared memory")
+    if b == 0:
+        return (torch.empty((0, k2), dtype=torch.float32, device=dev),
+                torch.empty((0, k2), dtype=torch.int32, device=dev))
+    tile_cids, qsel = plan_tile_probes(cids, mask, 1, r_count)
+    return ivf_scan_q8_topk_planned(q8, scale, norm2, centroids, posting_ids,
+                                    tile_cids, qsel.reshape(b, p), queries,
+                                    k2=k2)
+
+
+def ivf_scan_q8_topk_planned(q8, scale, norm2, centroids, posting_ids,
+                             tile_cids, qsel, queries, *, k2: int):
+    """Launch K1 on a prebuilt plan: ``tile_cids`` (B, P) and ``qsel``
+    (B, P) from :func:`plan_tile_probes` with one query per tile.  The
+    inputs' limits are checked by :func:`ivf_scan_q8_topk_cuda`; this
+    checks only the plan's shapes.  Returns ((B, k2), (B, k2))."""
+    dev = queries.device
+    b, p = tile_cids.shape
+    _, l, d = q8.shape
+    _require(qsel.shape == (b, p) and queries.shape == (b, d)
+             and tile_cids.dtype == torch.int32
+             and qsel.dtype == torch.int32, "plan shapes")
+    qsel = qsel.contiguous()
+    tile_cids = tile_cids.contiguous()
     out_d = torch.empty((b, k2), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k2), dtype=torch.int32, device=dev)
-    if b == 0:
-        return out_d, out_i
-    tile_cids, qsel = plan_tile_probes(cids, mask, 1, r_count)
-    qsel = qsel.reshape(b, p).contiguous()
-    tile_cids = tile_cids.contiguous()
-    rc = lib.ivf_scan_q8_topk_launch(
+    rc = cuda_lib.library().ivf_scan_q8_topk_launch(
         q8.data_ptr(), scale.data_ptr(), norm2.data_ptr(),
         centroids.data_ptr(), posting_ids.data_ptr(), tile_cids.data_ptr(),
         qsel.data_ptr(), queries.data_ptr(), out_d.data_ptr(),

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from . import ivf_scan as _ivf
 from . import ivf_scan_q8 as _q8
 from . import kmeans_assign as _assign
 from . import kmeans_mstep as _mstep
+from . import pairwise_l2 as _pw
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -35,13 +37,27 @@ def kmeans_mstep(sums: torch.Tensor, counts: torch.Tensor,
     return _mstep.kmeans_mstep_cuda(sums, counts, reseed)
 
 
-def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
-    """The unfused E-step of the reference runs on the ``pairwise_l2``
-    kernel (src/repro/kernels/pairwise_l2.py), which a later slice ports."""
-    raise NotImplementedError(
-        "unfused k-means assign needs the pairwise_l2 kernel "
-        "(src/repro/kernels/pairwise_l2.py), not ported yet; use the fused "
-        "path (BuildConfig(fused_assign=True))")
+def pairwise_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2 (N, D) x (M, D) -> (N, M), clamped >= 0."""
+    if _on_cpu(a):
+        return _pw.pairwise_l2_plain(a, b)
+    return _pw.pairwise_l2_cuda(a, b)
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
+                  chunk: int = 16384):
+    """The unfused k-means E-step: (assign (N,) int32, min_dist (N,) f32).
+
+    Chunked over N to bound the (chunk, K) distance tile, which the
+    ``pairwise_l2`` kernel computes; the argmin (first index among equal
+    distances, as ``jnp.argmin``) and the min are plain ops outside the
+    kernel, as the reference leaves them to XLA."""
+    outs_a, outs_d = [], []
+    for s in range(0, x.shape[0], chunk):
+        d = pairwise_l2(x[s:s + chunk], centroids)
+        outs_a.append(torch.argmin(d, dim=1).to(torch.int32))
+        outs_d.append(torch.min(d, dim=1).values)
+    return torch.cat(outs_a), torch.cat(outs_d)
 
 
 def ivf_scan_q8_topk(q8, scale, norm2, centroids, posting_ids, cids, mask,
@@ -54,3 +70,21 @@ def ivf_scan_q8_topk(q8, scale, norm2, centroids, posting_ids, cids, mask,
                                           k2=k2)
     return _q8.ivf_scan_q8_topk_cuda(q8, scale, norm2, centroids,
                                      posting_ids, cids, mask, queries, k2=k2)
+
+
+def ivf_scan_topk(postings, posting_ids, cids, mask, queries, *, k2: int,
+                  bq: int = 8):
+    """Candidate-compressed f32 scan: ((B, k2) dists ascending, (B, k2)
+    ids), unique by id, padded (+inf, -1)."""
+    if _on_cpu(queries):
+        return _ivf.ivf_scan_topk_plain(postings, posting_ids, cids, mask,
+                                        queries, k2=k2, bq=bq)
+    return _ivf.ivf_scan_topk_cuda(postings, posting_ids, cids, mask,
+                                   queries, k2=k2, bq=bq)
+
+
+def ivf_scan(postings, cids, mask, queries) -> torch.Tensor:
+    """Legacy full-distance scan: (B, P, L) f32, masked probes +inf."""
+    if _on_cpu(queries):
+        return _ivf.ivf_scan_plain(postings, cids, mask, queries)
+    return _ivf.ivf_scan_cuda(postings, cids, mask, queries)

@@ -1,5 +1,5 @@
-"""Plain torch oracles for the kernels this slice ports (torch counterparts
-of ``repro.kernels.ref``).  They state each kernel's output contract in the
+"""Plain torch oracles for the port's kernels (torch counterparts of
+``repro.kernels.ref``).  They state each kernel's output contract in the
 fewest tensor operations; the kernel modules' plain versions follow the
 kernels' own structure instead."""
 from __future__ import annotations
@@ -57,6 +57,31 @@ def ivf_scan_q8_topk_ref(q8, scale, norm2, centroids, posting_ids, cids,
     d = torch.sum(qc * qc, dim=-1)[:, :, None] - 2.0 * s * cross + norm2[safe]
     d = torch.clamp_min(d, 0.0)
     d = torch.where(mask.bool()[:, :, None], d, INF)
+    ids = posting_ids[safe]
+    d = torch.where(ids < 0, INF, d)
+    b = queries.shape[0]
+    return dedup_topk(d.reshape(b, -1), ids.reshape(b, -1), k2)
+
+
+def ivf_scan_ref(postings, cids, mask, queries) -> torch.Tensor:
+    """Oracle for the legacy scan: (B, P, L) squared L2 from each query to
+    the rows of its probed clusters (cids clamped), masked probes +inf."""
+    q = queries.to(torch.float32)
+    safe = torch.clamp(cids.long(), 0, postings.shape[0] - 1)
+    g = postings[safe].to(torch.float32)                 # (B, P, L, D)
+    d = (torch.sum(q * q, dim=-1)[:, None, None]
+         - 2.0 * torch.einsum("bd,bpld->bpl", q, g)
+         + torch.sum(g * g, dim=-1))
+    d = torch.clamp_min(d, 0.0)
+    return torch.where(mask.bool()[:, :, None], d, INF)
+
+
+def ivf_scan_topk_ref(postings, posting_ids, cids, mask, queries, k2: int):
+    """Oracle for the fused f32 scan: full scan then dedup-top-k2:
+    ((B, k2) ascending dists, (B, k2) ids), unique by id with the per-id
+    minimum, padded (+inf, -1)."""
+    d = ivf_scan_ref(postings, cids, mask, queries)
+    safe = torch.clamp(cids.long(), 0, postings.shape[0] - 1)
     ids = posting_ids[safe]
     d = torch.where(ids < 0, INF, d)
     b = queries.shape[0]

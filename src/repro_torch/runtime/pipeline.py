@@ -1,19 +1,24 @@
-"""Double-buffered prefetch pipeline over the q8 hot tier (port of the
-quantized streamed path of ``repro.runtime.pipeline``).
+"""Double-buffered prefetch pipeline (port of ``repro.runtime.pipeline``).
+
+Three modes over one index: streamed from the q8 host tier
+(``QuantizedTieredPostings``, the serving default), streamed from the f32
+host tier (``TieredPostings``), or resident (``tier=None``: the whole index
+on the device, served through ``core.search._scan_and_rank``).
 
 Stage protocol (each stage returns a handle consumed by the next):
 
   ``plan``     -> centroid scan + LLSP routing/pruning on the device, probe
-                  set resolved to host arrays;
-  ``prefetch`` -> host gather of the probed-cluster union into pinned
-                  buffers + copy to the device on the tier's stream, on a
-                  dedicated worker thread;
-  ``dispatch`` -> join the gather, launch the fused q8 scan (K1) and the
-                  candidate merge on the scan stream, which first waits on
-                  the copy's event; results start copying back to pinned
-                  host buffers; returns without waiting;
+                  set resolved to host arrays (or an admission-time
+                  ``routed`` plan reused as it is);
+  ``prefetch`` -> streamed: host gather of the probed-cluster union into
+                  pinned buffers + copy to the device on the tier's stream,
+                  on a dedicated worker thread; resident: nothing;
+  ``dispatch`` -> join the gather, launch the fused scan (K1 for q8, B2 for
+                  f32) and the candidate merge on the scan stream, which
+                  first waits on the copy's event; results start copying
+                  back to pinned host buffers; returns without waiting;
   ``harvest``  -> wait for the scan's event, exact re-rank from the flash
-                  tier (numpy) with adaptive stop.
+                  tier (numpy) with adaptive stop when one is attached.
 
 CUDA streams: ``plan`` runs on the current stream, the tier copies on its
 own stream, the scan on the pipeline's scan stream.  Tensors used on a
@@ -34,7 +39,7 @@ import contextlib
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -43,13 +48,14 @@ from repro_torch.core.distance import (
     dedup_topk, merge_candidate_topk, squared_l2, topk_smallest,
 )
 from repro_torch.core.ivf import IVFIndex
-from repro_torch.core.search import SearchConfig, _auto_ncand, decide_nprobe
+from repro_torch.core.search import SearchConfig, _auto_ncand, \
+    _scan_and_rank, decide_nprobe
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.quality import recall_proxy
 from repro_torch.storage.flash_tier import FlashTier
-from repro_torch.storage.host_tier import QuantizedFetch, \
-    QuantizedTieredPostings
+from repro_torch.storage.host_tier import QuantizedTieredPostings, \
+    TieredPostings
 
 
 @dataclasses.dataclass
@@ -64,6 +70,7 @@ class StageTimes:
     stream_end: float = 0.0        # packed tensors on device
     scan_dispatch: float = 0.0
     scan_done: float = 0.0
+    routed: bool = False           # plan reused an admission-time route
     clusters_requested: int = 0    # probe slots across the batch (pre-dedup)
     union_clusters: int = 0        # deduped gather-union size
     union_bytes: int = 0           # payload bytes of the union
@@ -105,7 +112,7 @@ class _Plan:
 @dataclasses.dataclass
 class _Prep:
     plan: _Plan
-    fut: object                    # gather future
+    fut: Optional[object]          # gather future (None when resident)
 
 
 @dataclasses.dataclass
@@ -178,26 +185,68 @@ def _scan_streamed_q8(packed_q8, packed_scale, packed_norm2, packed_cent,
     return merge_candidate_topk(cd, ci, cfg.k)
 
 
-class PrefetchPipeline:
-    """Stage-structured streamed serving over one index's q8 hot tier.
+def _scan_streamed(packed, packed_ids, remap, pmask, queries,
+                   cfg: SearchConfig, *, dup_bound: int):
+    """Candidate-compressed scan over the streamed f32 rows.
 
-    Postings live on the host in ``tier``; each batch streams only its
-    probed-cluster union.  ``pad_batch`` / ``row_bucket`` quantize the
-    padded batch size and packed-row count as in the reference.  Runs on
-    ``device`` (the CUDA card by default; ``"cpu"`` runs the plain
-    versions)."""
+    ``use_kernel``: the fused scan (B2 on CUDA, its plain version on the
+    CPU) runs on the packed tensors with remap as cids.  Otherwise the
+    packed-domain oracle, the explicit A/B arm: one product of the batch
+    against every packed row, each query masked to its probed rows with a
+    select after the product (so a NaN payload in a dead row never reaches
+    the top-k), top-k over an O(k2 * dup_bound) pre-selection, then
+    dedup."""
+    k2 = cfg.n_cand or _auto_ncand(cfg.k)
+    if cfg.use_kernel:
+        cd, ci = kops.ivf_scan_topk(packed, packed_ids, remap, pmask,
+                                    queries, k2=k2)
+    else:
+        r, l, dim = packed.shape
+        b = queries.shape[0]
+        d = squared_l2(queries, packed.reshape(r * l, dim))     # (B, R*L)
+        member = torch.zeros((b, r), dtype=torch.int32, device=d.device)
+        rows_idx = torch.arange(b, device=d.device)[:, None].expand_as(remap)
+        member.index_put_((rows_idx, remap.long()), pmask.to(torch.int32),
+                          accumulate=True)
+        live = (member > 0)[:, :, None] & (packed_ids >= 0)[None, :, :]
+        d = torch.where(live.reshape(b, r * l), d, float("inf"))
+        ids = packed_ids.reshape(1, r * l).expand(b, r * l)
+        nd, pos = topk_smallest(d, min(k2 * dup_bound, r * l))
+        cd, ci = dedup_topk(nd, torch.gather(ids, 1, pos), k2)
+    return merge_candidate_topk(cd, ci, cfg.k)
+
+
+def _scan_reference(packed, packed_ids, remap, pmask, queries,
+                    cfg: SearchConfig):
+    """The pre-runtime streamed scan (A/B baseline): the fused scan's
+    oracle on the packed tensors, which re-gathers a (B, P, L, D) probe
+    tensor from the rows the tier just streamed."""
+    from repro_torch.kernels.ref import ivf_scan_topk_ref
+
+    k2 = cfg.n_cand or _auto_ncand(cfg.k)
+    cd, ci = ivf_scan_topk_ref(packed, packed_ids, remap, pmask, queries,
+                               k2=k2)
+    return merge_candidate_topk(cd, ci, cfg.k)
+
+
+class PrefetchPipeline:
+    """Stage-structured serving over one index.
+
+    Streamed (``tier`` given, q8 or f32): postings live on the host and each
+    batch streams only its probed-cluster union.  Resident (``tier=None``):
+    the index is on the device and prefetch does nothing.  ``pad_batch`` /
+    ``row_bucket`` quantize the padded batch size and packed-row count as in
+    the reference.  Runs on ``device`` (the CUDA card by default; ``"cpu"``
+    runs the plain versions)."""
 
     def __init__(self, index: IVFIndex, llsp_params, cfg: SearchConfig,
-                 tier: QuantizedTieredPostings, *,
+                 tier: Optional[Union[QuantizedTieredPostings,
+                                      TieredPostings]] = None, *,
                  pad_batch: int = 16, row_bucket: int = 256,
                  dup_bound: Optional[int] = None,
                  flash: Optional[FlashTier] = None,
                  rerank: Optional[RerankConfig] = None,
                  device: DeviceLike = None):
-        if tier is None:
-            raise NotImplementedError(
-                "the resident (all-device) serve path is ported in a later "
-                "slice; pass the q8 host tier")
         self.device = resolve_device(device)
         self.index = index.to(self.device)
         self.llsp_params = (None if llsp_params is None
@@ -210,7 +259,9 @@ class PrefetchPipeline:
         self.pad_batch = pad_batch
         self.row_bucket = row_bucket
         if dup_bound is None:
-            dup_bound = max_id_replicas(tier.posting_ids)
+            dup_bound = max_id_replicas(
+                tier.posting_ids if tier is not None
+                else self.index.posting_ids.cpu().numpy())
         self.dup_bound = max(int(dup_bound), 1)
         self._gatherer = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="prefetch")
@@ -236,6 +287,20 @@ class PrefetchPipeline:
             return self.cfg
         k2 = self.cfg.n_cand or _auto_ncand(self.cfg.k)
         return dataclasses.replace(self.cfg, k=k2, n_cand=k2)
+
+    @property
+    def streamed(self) -> bool:
+        return self.tier is not None
+
+    @property
+    def quantized(self) -> bool:
+        return getattr(self.tier, "quantized", False) \
+            or (self.cfg.tier == "q8" and self.tier is None)
+
+    @property
+    def tier_kind(self) -> str:
+        """The first-pass payload: "q8" or "f32"."""
+        return "q8" if self.quantized else "f32"
 
     # -- stages ------------------------------------------------------------
     def _padded_inputs(self, queries, topk):
@@ -267,16 +332,39 @@ class PrefetchPipeline:
             torch.from_numpy(tk).to(self.device))
         return cids.cpu().numpy()[:b], nprobe.cpu().numpy()[:b]
 
-    def plan(self, queries: np.ndarray, topk) -> _Plan:
+    def plan(self, queries: np.ndarray, topk,
+             nprobe_cap: Optional[np.ndarray] = None,
+             routed: Optional[tuple] = None) -> _Plan:
         """Centroid scan + LLSP pruning; probe set resolved to host arrays
-        (the only device-to-host wait of the plan stage)."""
+        (the only device-to-host wait of the plan stage).
+
+        ``nprobe_cap`` (b,) caps each query's nprobe (0 = uncapped).
+        ``routed`` is an admission-time plan ``(cids (b, P), nprobe (b,))``
+        from :meth:`route`: when given, the centroid scan is skipped and the
+        stage is host bookkeeping only (pad + mask)."""
         t = StageTimes(size=len(queries))
         t.plan_start = time.perf_counter()
         q, tk, b = self._padded_inputs(queries, topk)
+        bp = len(q)
         qd = torch.from_numpy(q).to(self.device)
-        cd, npd = self._plan_device(qd, torch.from_numpy(tk).to(self.device))
-        cids = cd.cpu().numpy()
-        nprobe = npd.cpu().numpy().copy()
+        if routed is not None:
+            rcids, rnp = routed
+            rcids = np.asarray(rcids, np.int32)
+            cids = np.full((bp, rcids.shape[1]), -1, np.int32)
+            cids[:b] = rcids
+            nprobe = np.zeros((bp,), np.int32)
+            nprobe[:b] = np.asarray(rnp, np.int32)
+            t.routed = True
+        else:
+            cd, npd = self._plan_device(qd,
+                                        torch.from_numpy(tk).to(self.device))
+            cids = cd.cpu().numpy()
+            nprobe = npd.cpu().numpy().copy()
+        if nprobe_cap is not None:
+            cap = np.zeros((bp,), np.int32)
+            cap[:b] = np.asarray(nprobe_cap, np.int32)
+            capped = cap > 0
+            nprobe[capped] = np.minimum(nprobe[capped], cap[capped])
         nprobe[b:] = 0                     # padding rows probe nothing
         pmask = (np.arange(cids.shape[1])[None, :] < nprobe[:, None]) \
             & (cids >= 0)
@@ -287,7 +375,7 @@ class PrefetchPipeline:
         t.plan_end = time.perf_counter()
         return _Plan(qd, cids, pmask, nprobe, t, q, ready)
 
-    def _gather(self, plan: _Plan) -> QuantizedFetch:
+    def _gather(self, plan: _Plan):
         fetched = self.tier.fetch(plan.cids, plan.pmask,
                                   bucket=self.row_bucket)
         ev = self.tier.stats.events[-1]    # same thread as the fetch: safe
@@ -302,15 +390,26 @@ class PrefetchPipeline:
         return fetched
 
     def prefetch(self, plan: _Plan) -> _Prep:
-        """Start the host gather + device copy on the worker thread."""
+        """Start the host gather + device copy on the worker thread
+        (resident: nothing to fetch)."""
+        if not self.streamed:
+            return _Prep(plan, None)
         return _Prep(plan, self._gatherer.submit(self._gather, plan))
 
-    def dispatch(self, prep: _Prep) -> _Inflight:
+    def dispatch(self, prep: _Prep, *, reference: bool = False
+                 ) -> _Inflight:
         """Join the gather, launch the scan on the scan stream and start the
-        copy of its results to the host; returns without waiting."""
+        copy of its results to the host; returns without waiting.
+        ``reference`` swaps in the pre-runtime scan on the f32 tier (the
+        A/B baseline)."""
         plan = prep.plan
         t = plan.times
-        fetched = prep.fut.result()
+        fetched = prep.fut.result() if self.streamed else None
+        quant = getattr(self.tier, "quantized", False)
+        if reference and (quant or not self.streamed):
+            raise ValueError(
+                "reference scan is an f32-tier A/B baseline; the quantized "
+                "tier and the resident mode have no pre-runtime twin")
         t.scan_dispatch = time.perf_counter()
         stream = self._scan_stream
         ctx = (torch.cuda.stream(stream) if stream is not None
@@ -318,14 +417,28 @@ class PrefetchPipeline:
         done = None
         with ctx:
             if stream is not None:
-                stream.wait_event(fetched.ready)
                 stream.wait_event(plan.ready)
-                for x in (*fetched.tensors(), plan.queries_dev):
-                    x.record_stream(stream)
+                plan.queries_dev.record_stream(stream)
+                if fetched is not None:
+                    stream.wait_event(fetched.ready)
+                    for x in fetched.tensors():
+                        x.record_stream(stream)
             pmask = torch.from_numpy(plan.pmask).to(self.device)
-            od, oi = _scan_streamed_q8(
-                *fetched.tensors(), pmask, plan.queries_dev, self._scan_cfg,
-                dup_bound=self.dup_bound)
+            if fetched is None:
+                cids = torch.from_numpy(plan.cids).to(self.device)
+                od, oi = _scan_and_rank(self.index, plan.queries_dev, cids,
+                                        pmask, self._scan_cfg)
+            elif quant:
+                od, oi = _scan_streamed_q8(
+                    *fetched.tensors(), pmask, plan.queries_dev,
+                    self._scan_cfg, dup_bound=self.dup_bound)
+            elif reference:
+                od, oi = _scan_reference(*fetched.tensors(), pmask,
+                                         plan.queries_dev, self._scan_cfg)
+            else:
+                od, oi = _scan_streamed(
+                    *fetched.tensors(), pmask, plan.queries_dev,
+                    self._scan_cfg, dup_bound=self.dup_bound)
             if stream is not None:
                 host_d = torch.empty(od.shape, dtype=od.dtype,
                                      pin_memory=True)
@@ -437,26 +550,31 @@ class PrefetchPipeline:
         size, so traffic never pays the first-use costs (kernel build,
         allocator growth, pinned-buffer pool).  Returns the number of warm
         batches."""
+        first = self.index.centroids[:1].cpu().numpy()
         n = 0
         for b in batch_sizes:
             bp = -(-b // self.pad_batch) * self.pad_batch
-            q = np.repeat(self.tier.centroids[:1], bp, axis=0)
-            self.serve_batch(q, self.cfg.k)
+            self.serve_batch(np.repeat(first, bp, axis=0), self.cfg.k)
             n += 1
         return n
 
     # -- convenience drivers ----------------------------------------------
-    def serve_batch(self, queries, topk) -> BatchResult:
-        plan = self.plan(queries, topk)
+    def serve_batch(self, queries, topk,
+                    nprobe_cap: Optional[np.ndarray] = None) -> BatchResult:
+        plan = self.plan(queries, topk, nprobe_cap=nprobe_cap)
         return self.harvest(self.dispatch(self.prefetch(plan)))
 
-    def run_sequential(self, batches) -> list[BatchResult]:
-        """Strictly serial stage chain per batch (the A/B baseline)."""
+    def run_sequential(self, batches, *, reference: bool = False
+                       ) -> list[BatchResult]:
+        """Strictly serial stage chain per batch (the A/B baseline);
+        ``reference=True`` also swaps in the pre-runtime scan (f32 tier)."""
         out = []
         for queries, topk in batches:
             prep = self.prefetch(self.plan(queries, topk))
-            prep.fut.result()              # block: no overlap, by design
-            out.append(self.harvest(self.dispatch(prep)))
+            if prep.fut is not None:
+                prep.fut.result()          # block: no overlap, by design
+            out.append(self.harvest(self.dispatch(prep,
+                                                  reference=reference)))
         return out
 
     def run_pipelined(self, batches, *, depth: int = 1) -> list[BatchResult]:
@@ -570,6 +688,7 @@ def make_quantized_pipeline(index: IVFIndex, llsp_params, cfg: SearchConfig,
             vectors = _vectors_from_postings(index)
         flash = FlashTier(vectors, flash_path, arena=arena, name=name,
                           epoch=epoch)
+    cfg = dataclasses.replace(cfg, tier="q8")
     return PrefetchPipeline(index, llsp_params, cfg, tier, flash=flash,
                             rerank=rerank, device=dev, **pipe_kw)
 

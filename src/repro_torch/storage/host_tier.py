@@ -1,14 +1,14 @@
-"""Host hot tier over the int8-residual payload (port of
-``repro.storage.host_tier``: ``_plan_union``, ``FetchEvent``, ``TierStats``
-and ``QuantizedTieredPostings``).
+"""Host hot tiers (port of ``repro.storage.host_tier``: ``_plan_union``,
+``FetchEvent``, ``TierStats``, the f32 ``TieredPostings`` and the int8
+``QuantizedTieredPostings``).
 
-The q8 codes, norms, ids and centroids stay in host memory (numpy); each
-batch gathers only the union of its probed clusters into PINNED host
-buffers and copies them to the device with ``non_blocking=True`` on the
-tier's own CUDA stream, so the copy of batch i+1 overlaps the scan of
-batch i.  ``fetch`` returns a :class:`QuantizedFetch` whose ``ready`` event
-the scan stream must wait on.  On the CPU the packed host tensors are used
-as they are.
+The payload (f32 postings, or q8 codes, norms and centroids) and the ids
+stay in host memory (numpy); each batch gathers only the union of its
+probed clusters into PINNED host buffers and copies them to the device with
+``non_blocking=True`` on the tier's own CUDA stream, so the copy of batch
+i+1 overlaps the scan of batch i.  ``fetch`` returns a fetch record whose
+``ready`` event the scan stream must wait on.  On the CPU the packed host
+tensors are used as they are.
 """
 from __future__ import annotations
 
@@ -82,6 +82,114 @@ def _plan_union(cids: np.ndarray, mask: Optional[np.ndarray],
     lut[wanted] = np.arange(u)
     remap = np.where(live, lut[np.clip(cids, 0, n_clusters - 1)], sentinel)
     return wanted, u, rows, remap.astype(np.int32), live
+
+
+def _pinned_copy(host: tuple, device: torch.device, stream):
+    """Copy pinned host tensors to ``device`` on ``stream`` and wait for
+    the copies (the caller is the prefetch worker); returns (device
+    tensors, ready event).  On the CPU the host tensors are returned."""
+    if device.type != "cuda":
+        return list(host), None
+    with torch.cuda.stream(stream):
+        dev = [h.to(device, non_blocking=True) for h in host]
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    ready.synchronize()
+    return dev, ready
+
+
+@dataclasses.dataclass
+class F32Fetch:
+    """The packed f32 union of one batch, on the tier's device."""
+    postings: torch.Tensor    # (R, L, D) f32; sentinel/pad rows uninitialised
+    ids: torch.Tensor         # (R, L) int32
+    remap: torch.Tensor       # (B, P) int32 into the packed rows
+    ready: Optional[torch.cuda.Event] = None   # copies done (CUDA only)
+
+    def tensors(self) -> tuple:
+        return (self.postings, self.ids, self.remap)
+
+
+class TieredPostings:
+    """Host-resident f32 posting store with batched device streaming.
+
+    ``fetch`` gathers the union of the probed clusters once per batch and
+    streams it: (packed postings (R, L, D), packed ids (R, L), remap
+    (B, P)), R = union + 1 sentinel rounded up to ``bucket`` and to at
+    least ``pad_rows``.  Masked or negative probes remap to the sentinel
+    row; sentinel and pad rows carry ids -1 and an UNINITIALISED payload
+    (reused pinned memory may hold any bits, NaN included), which every
+    consumer masks by id.
+    """
+
+    quantized = False
+
+    def __init__(self, postings: np.ndarray, posting_ids: np.ndarray,
+                 epoch: int = 0, *, device: DeviceLike = None):
+        self.postings = np.ascontiguousarray(postings, dtype=np.float32)
+        self.posting_ids = np.ascontiguousarray(posting_ids, dtype=np.int32)
+        self.epoch = int(epoch)
+        self.device = resolve_device(device)
+        self.released = False
+        self.stats = TierStats()
+        self._lut = np.zeros(self.postings.shape[0], dtype=np.int64)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    def release(self) -> None:
+        """Drop the host payload (idempotent); a later fetch raises."""
+        self.released = True
+        self.postings = None
+        self.posting_ids = None
+        self._lut = None
+
+    @property
+    def cluster_bytes(self) -> int:
+        return int(self.postings[0].nbytes + self.posting_ids[0].nbytes)
+
+    def fetch(self, cids: np.ndarray, mask: Optional[np.ndarray] = None,
+              pad_rows: Optional[int] = None, bucket: int = 1) -> F32Fetch:
+        """Union-gather the probed clusters' f32 rows and stream them (on
+        CUDA: pinned buffers, the tier's stream, waited on here)."""
+        if self.released:
+            raise RuntimeError(
+                f"fetch on released tier (epoch {self.epoch}): a batch was "
+                f"routed to a retired index version")
+        t0 = time.perf_counter()
+        wanted, u, rows, remap, live = _plan_union(
+            cids, mask, self._lut, self.postings.shape[0], pad_rows, bucket)
+        _, l, d = self.postings.shape
+        pin = self.device.type == "cuda"
+        packed = torch.empty((rows, l, d), dtype=torch.float32,
+                             pin_memory=pin)
+        np.take(self.postings, wanted, axis=0, out=packed.numpy()[:u])
+        packed_ids = torch.full((rows, l), -1, dtype=torch.int32,
+                                pin_memory=pin)
+        np.take(self.posting_ids, wanted, axis=0,
+                out=packed_ids.numpy()[:u])
+        packed_remap = torch.from_numpy(remap)
+        if pin:
+            packed_remap = packed_remap.pin_memory()
+        host = (packed, packed_ids, packed_remap)
+        t1 = time.perf_counter()
+        dev, ready = _pinned_copy(host, self.device, self._stream)
+        t2 = time.perf_counter()
+        nbytes = int(sum(h.numel() * h.element_size() for h in host[:2]))
+        _record_fetch(self.stats, t0, t1, t2, rows, nbytes, int(live.sum()),
+                      u, u * self.cluster_bytes)
+        return F32Fetch(*dev, ready=ready)
+
+
+def _record_fetch(stats: TierStats, t0, t1, t2, rows, nbytes, requested,
+                  u, union_bytes) -> None:
+    stats.bytes_streamed += nbytes
+    stats.union_bytes_streamed += union_bytes
+    stats.batches += 1
+    stats.clusters_fetched += requested
+    stats.clusters_deduped += u
+    stats.record(FetchEvent(t0, t1, t2, rows, nbytes,
+                            clusters_requested=requested, clusters_union=u,
+                            union_bytes=union_bytes))
 
 
 @dataclasses.dataclass
@@ -188,27 +296,10 @@ class QuantizedTieredPostings:
         host = (packed_q8, packed_scale, packed_norm2, packed_cent,
                 packed_ids, packed_remap)
         t1 = time.perf_counter()
-        ready = None
-        if pin:
-            with torch.cuda.stream(self._stream):
-                dev = [h.to(self.device, non_blocking=True) for h in host]
-                ready = torch.cuda.Event()
-                ready.record(self._stream)
-            ready.synchronize()
-        else:
-            dev = list(host)
+        dev, ready = _pinned_copy(host, self.device, self._stream)
         t2 = time.perf_counter()
         dev[1] = dev[1].reshape(rows, 1, 1)
         nbytes = int(sum(h.numel() * h.element_size() for h in host[:5]))
-        requested = int(live.sum())
-        union_bytes = u * self.cluster_bytes
-        self.stats.bytes_streamed += nbytes
-        self.stats.union_bytes_streamed += union_bytes
-        self.stats.batches += 1
-        self.stats.clusters_fetched += requested
-        self.stats.clusters_deduped += u
-        self.stats.record(FetchEvent(t0, t1, t2, rows, nbytes,
-                                     clusters_requested=requested,
-                                     clusters_union=u,
-                                     union_bytes=union_bytes))
+        _record_fetch(self.stats, t0, t1, t2, rows, nbytes, int(live.sum()),
+                      u, u * self.cluster_bytes)
         return QuantizedFetch(*dev, ready=ready)

@@ -73,6 +73,29 @@ def q8_case(c, l, d, b, p, seed, dead=0.0, masked=0.2, dup=False):
             ids, cids, mask, queries)
 
 
+def f32_case(c, l, d, b, p, seed, dead=0.0, masked=0.2, dup=False,
+             nan_dead=False):
+    """f32 postings around random centroids and a probe plan:
+    (postings, posting_ids, cids, mask, queries).  ``nan_dead`` fills the
+    payload of dead slots (id < 0) with NaN, as stale pinned memory may."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(c, d)).astype(np.float32)
+    post = (cents[:, None, :]
+            + 0.3 * rng.normal(size=(c, l, d))).astype(np.float32)
+    ids = rng.permutation(4 * c * l)[: c * l].reshape(c, l).astype(np.int32)
+    if dead:
+        ids[rng.random(ids.shape) < dead] = -1
+    if nan_dead:
+        post[ids < 0] = np.nan
+    queries = (cents[rng.integers(0, c, size=b)]
+               + 0.3 * rng.normal(size=(b, d))).astype(np.float32)
+    cids = rng.integers(0, c, size=(b, p)).astype(np.int32)
+    if dup:
+        cids[:, 1] = cids[:, 0]
+    mask = rng.random((b, p)) >= masked
+    return post, ids, cids, mask, queries
+
+
 def grid_points(n, k, d, seed):
     """Small integers: every distance, sum and count is exact in f32, and
     equal distances (ties) are common; centroid k // 2 duplicates centroid

@@ -247,19 +247,36 @@ def test_closure_assign_and_build_postings_match_jax(small_corpus):
         np.testing.assert_array_equal(tp, jp)
 
 
-def test_fused_kmeans_loop_matches_jax(small_corpus):
+@pytest.mark.parametrize("fused", [True, False])
+def test_fused_kmeans_loop_matches_jax(small_corpus, fused):
+    """The k-means loop on both data paths: fused (K2/K3 plain versions)
+    and unfused (pairwise_l2 tile + argmin, host float64 M-step)."""
     from repro.build.kmeans import kmeans as jkmeans
     from repro_torch.build.kmeans import kmeans as tkmeans
 
     x, _, _ = small_corpus
     x = x[:2000]
-    jc, ja, ji = jkmeans(x, 12, iters=6, seed=3, fused=True)
-    tc, ta, ti = tkmeans(x, 12, iters=6, seed=3, device="cpu")
+    jc, ja, ji = jkmeans(x, 12, iters=6, seed=3, fused=fused)
+    tc, ta, ti = tkmeans(x, 12, iters=6, seed=3, fused=fused, device="cpu")
     assert (ta == ja).mean() >= 0.99
     np.testing.assert_allclose(tc, jc, rtol=1e-4, atol=1e-4)
     assert ti == pytest.approx(ji, rel=1e-4)
-    with pytest.raises(NotImplementedError, match="pairwise_l2"):
-        tkmeans(x, 4, fused=False, device="cpu")
+    if not fused:     # grid data: every distance and sum exact, ties common
+        from repro_torch.build.kmeans import enforce_size_bound
+
+        g = np.random.default_rng(5).integers(-4, 5, size=(600, 6))
+        g = g.astype(np.float32)
+        jc, ja, ji = jkmeans(g, 9, iters=5, seed=1, fused=False)
+        tc, ta, ti = tkmeans(g, 9, iters=5, seed=1, fused=False,
+                             device="cpu")
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tc, jc)
+        assert ti == ji
+        from repro.build.kmeans import enforce_size_bound as jbound
+
+        np.testing.assert_array_equal(
+            enforce_size_bound(g, tc[:3], 150, fused=False, device="cpu"),
+            jbound(g, jc[:3], 150, fused=False))
 
 
 def test_synthetic_corpus_identical_to_reference():

@@ -153,9 +153,12 @@ def test_ops_dispatch_cpu_to_plain_versions_without_counting():
     assert torch.equal(a, pa) and torch.equal(s, ps) and torch.equal(n, pn)
     m = tops.kmeans_mstep(s, n, torch.zeros_like(s))
     assert torch.equal(m, tmstep.kmeans_mstep_plain(s, n, torch.zeros_like(s)))
+    ta, tmd = tops.kmeans_assign(*_t(x, c), chunk=32)   # the unfused E-step
+    ja, jmd = jops.kmeans_assign(jnp.asarray(x), jnp.asarray(c), chunk=32)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tmd.numpy(), np.asarray(jmd))
+    assert ta.dtype == torch.int32
     assert LAUNCHES.snapshot() == before          # plain versions launch none
-    with pytest.raises(NotImplementedError, match="pairwise_l2"):
-        tops.kmeans_assign(*_t(x, c))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -245,16 +245,35 @@ def test_port_build_resumes_to_the_same_hash(port_build, small_corpus,
 
 
 def test_unfused_build_names_the_missing_kernel(small_corpus, tmp_path):
-    from repro_torch.build.pipeline import BuildConfig, build_index
+    """The unfused build, ``BuildConfig(fused_assign=False)`` (the
+    ``pairwise_l2`` tile + argmin, host float64 M-step), passes the q8
+    recall gate and resumes to the same hash."""
+    from repro_torch.build.pipeline import BuildConfig, build_index, \
+        index_content_hash
+    from repro_torch.core.ivf import brute_force_topk
+    from repro_torch.runtime.pipeline import make_quantized_pipeline
 
-    x, _, _ = small_corpus
-    from repro_torch.build.elastic import TaskFailed
-
-    with pytest.raises(TaskFailed) as err:       # the elastic task's retries
-        build_index(x[:300], BuildConfig(**GATE_CFG, fused_assign=False),
-                    str(tmp_path), device="cpu")
-    assert isinstance(err.value.__cause__, NotImplementedError)
-    assert "pairwise_l2" in str(err.value.__cause__)
+    x, q, _ = small_corpus
+    cfg = BuildConfig(**GATE_CFG, fused_assign=False)
+    wd = str(tmp_path / "unfused")
+    idx, _, report = build_index(x, cfg, wd, device="cpu")
+    assert report.n_clusters > 10 and report.replication >= 1.0
+    pipe = make_quantized_pipeline(
+        idx, None, SearchConfig(k=10, nprobe_max=24, pruning="none"),
+        with_flash=False, device="cpu")
+    try:
+        out = pipe.run_pipelined(_batches(q, 32), depth=2)
+    finally:
+        pipe.close()
+    _, true10 = brute_force_topk(torch.from_numpy(x), torch.from_numpy(q),
+                                 10)
+    r = recall_at_k(np.concatenate([o.ids for o in out]), true10.numpy())
+    assert r >= 0.95, r
+    resumed, _, rep = build_index(x, cfg, wd, device="cpu")
+    assert rep.resumed_stages == ["stage1", "stage2"]
+    assert index_content_hash(resumed) == index_content_hash(idx)
+    fresh, _, _ = build_index(x, cfg, str(tmp_path / "fresh"), device="cpu")
+    assert index_content_hash(fresh) == index_content_hash(idx)
 
 
 # -------------------------------------------------------------------------
