@@ -8,9 +8,11 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. kernels: builds the CUDA library from ``src/repro_torch/csrc`` and holds
    each kernel (q8 fused scan K1, k-means assign/update K2, k-means M-step
-   K3, f32 fused scan B2, legacy f32 scan B6a, pairwise L2 B5) against its
-   plain torch version on the card, at the main paths' shapes and at ragged
-   ones;
+   K3, f32 fused scan B2, legacy f32 scan B6a, pairwise L2 B5, cluster-major
+   f32 scan B6b, legacy q8 scan B7) against its plain torch version on the
+   card, at the main paths' shapes, at ragged ones and with a NaN payload
+   in a live row (which must come out NaN, as the reference's clamp keeps
+   it);
 3. build: builds a SIFT1M-sized index (1,000,000 x 128, the
    ann-benchmarks sift-128-euclidean base size) with the port's own
    ``build_index`` (launch serve settings: max_cluster_size 96,
@@ -22,8 +24,9 @@ Phases, each of which raises on failure:
 5. parity: a subset of those batches through the same pipeline on the CPU
    (plain versions) must give the same ids up to ties;
 6. kernel times at the main paths' shapes (CUDA events), printed as one
-   JSON line with each kernel's launches, time, bound and plain time (K1
-   and B2 timed alone on a prebuilt plan, beside their wrappers' times);
+   JSON line with each kernel's launches (summed over every main-path run
+   of phases 3-11), time, bound and plain time (K1 and B2 timed alone on a
+   prebuilt plan, beside their wrappers' times);
 7. resident f32: ``serve_step`` over the phase-4 queries on the index held
    on the card, fused (B2) and legacy (B6a), then ``serve_leveled`` and the
    resident q8 tier (``attach_quantized``, K1); recall against the probe
@@ -34,7 +37,18 @@ Phases, each of which raises on failure:
    CPU (plain versions);
 10. unfused build: ``BuildConfig(fused_assign=False)`` (B5 + host float64
     M-step) at 100,000 vectors, served through the q8 pipeline, beside a
-    fused build at the same size.
+    fused build at the same size;
+11. engine: phase 3's index deployed as ``launch/serve.py`` deploys it (arena
+    extents, striping, replica map, IndexMeta, q8 pipeline with the flash
+    re-rank) and served through ``ServeEngine`` + ``DynamicBatcher``
+    (depth 2, locality grouping, deadline degrade) with the quality, SLO,
+    harvest and trace stack, under two open-loop traces at 0.25x and 0.75x
+    phase 4's QPS (the second with a 50 ms deadline), then both traces once
+    more without the quality stack; nothing lost, K1 once per scan
+    dispatch, ids through the engine equal to ``run_sequential``'s up to
+    ties;
+12. the CLI: ``python -m repro_torch.launch.serve`` with the reference's
+    defaults, two indexes, the shard-failure drill and a rebuild + swap.
 
 The last line of standard output is the device JSON; the script exits
 non-zero, printing no result, when there is no CUDA device or when it runs
@@ -63,10 +77,29 @@ N_BATCHES = 64
 BATCH = 32
 PARITY_BATCHES = 8
 DEVICE = "cuda"                  # the serving device of phases 3 and 4
+ENGINE_TRACE_S = 6.0             # seconds of each phase-11 open-loop trace
+ENGINE_PROBES = 256              # phase-11 queries checked against
+                                 # run_sequential
+CLI_N = 100_000                  # phase 12's corpus size per index
+CLI_TIMEOUT_S = 600              # phase 12's subprocess
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# every main-path run's launch counts, by run: each phase resets the counts
+# just before it drives its path and records them here just after
+PATH_RUNS: dict = {}
+
+
+def path_launches(what: str) -> dict:
+    """The launch counts since the last reset, recorded as main-path run
+    ``what``; phase 6's rows sum them per kernel."""
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    PATH_RUNS[what] = LAUNCHES.snapshot()
+    return PATH_RUNS[what]
 
 
 # --------------------------------------------------------------------------
@@ -358,6 +391,114 @@ def check_b5(case: str, a, b) -> float:
     return err
 
 
+def cmajor_inputs(c, l, d, b, a_n, *, seed, nan_row=False, device="cuda"):
+    """Postings (C, L, D), an active-cluster list with a duplicate and
+    out-of-range ids, a selection mask (A, B) and queries; ``nan_row`` puts
+    a NaN in one row of the first active cluster, selected by every
+    query."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(c, d)).astype(np.float32)
+    post = (cents[:, None, :]
+            + 0.3 * rng.normal(size=(c, l, d))).astype(np.float32)
+    queries = (cents[rng.integers(0, c, size=b)]
+               + 0.3 * rng.normal(size=(b, d))).astype(np.float32)
+    active = rng.permutation(c)[:a_n].astype(np.int32)
+    if a_n >= 4:
+        active[1], active[2], active[3] = active[0], -3, c + 7
+    qsel = rng.random((a_n, b)) < 0.5
+    if nan_row:
+        post[max(active[0], 0), l // 2, d // 3] = np.nan
+        qsel[0] = True
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(post), t(active), t(qsel), t(queries)
+
+
+def check_b6b(case: str, post, active, qsel, queries) -> float:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ivf_scan as scan
+
+    got = scan.ivf_scan_clustermajor_cuda(post, active, qsel, queries)
+    want = scan.ivf_scan_clustermajor_plain(post, active, qsel, queries)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    sel = np.broadcast_to(qsel.cpu().numpy()[:, None, :], g.shape)
+    if not (g[~sel] == np.inf).all():
+        raise AssertionError(f"B6b {case}: an unselected pair is not +inf")
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"B6b {case}: NaN pattern differs from the "
+                             f"plain version")
+    live = sel & ~np.isnan(w)
+    np.testing.assert_allclose(g[live], w[live], rtol=F32_TOL,
+                               atol=F32_TOL * 10, err_msg=f"B6b {case}")
+    err = float(np.abs(g[live] - w[live]).max()) if live.any() else 0.0
+    log(f"[kernels] B6b {case}: ok max_abs_err={err:.3g} "
+        f"nan={int(np.isnan(g).sum())}")
+    return err
+
+
+def q8_legacy_inputs(c, l, d, b, p, *, seed, masked=0.0, nan_norm=False,
+                     device="cuda"):
+    """Quantized postings with garbage codes in dead slots, out-of-range
+    and duplicate cids, masked probes; ``nan_norm`` puts a NaN in one live
+    slot's norm."""
+    args = list(q8_inputs(c, l, d, b, p, seed=seed, dead=0.1, masked=masked,
+                          dup=True, device="cpu"))
+    q8, scale, norm2, cents, _, cids, mask, queries = args
+    cids[0, -1] = c + 5
+    cids[-1, 0] = -2
+    if nan_norm:
+        mask[1, 2] = True
+        norm2[int(cids[1, 2]), l // 2] = float("nan")
+    return [a.contiguous().to(device) for a in
+            (q8, scale, norm2, cents, cids, mask, queries)]
+
+
+def check_b7(case: str, *args) -> float:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ivf_scan_q8 as q8m
+
+    got = q8m.ivf_scan_q8_cuda(*args)
+    want = q8m.ivf_scan_q8_plain(*args)
+    torch.cuda.synchronize()
+    g, w, m = got.cpu().numpy(), want.cpu().numpy(), args[5].cpu().numpy()
+    if not (g[~m] == np.inf).all():
+        raise AssertionError(f"B7 {case}: a masked probe is not +inf")
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"B7 {case}: NaN pattern differs from the "
+                             f"plain version")
+    live = np.broadcast_to(m[:, :, None], g.shape) & ~np.isnan(w)
+    np.testing.assert_allclose(g[live], w[live], rtol=1e-4, atol=1e-3,
+                               err_msg=f"B7 {case}")
+    err = float(np.abs(g[live] - w[live]).max()) if live.any() else 0.0
+    log(f"[kernels] B7 {case}: ok max_abs_err={err:.3g} "
+        f"nan={int(np.isnan(g).sum())}")
+    return err
+
+
+def check_nan_kept(case: str, got, want) -> None:
+    """A NaN distance from a NaN payload must come out NaN, where the plain
+    version (the reference's clamp) gives NaN."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not bool(torch.isnan(want).any()):
+        raise AssertionError(f"{case}: the plain version lost the NaN")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{case}: NaN pattern differs from the plain "
+                             f"version ({int(torch.isnan(got).sum())} vs "
+                             f"{int(torch.isnan(want).sum())})")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+    log(f"[kernels] {case}: ok, {int(torch.isnan(got).sum())} NaN kept")
+
+
 def k3_inputs(k, d, n_empty, *, seed, int_counts=False):
     import numpy as np
     import torch
@@ -386,7 +527,8 @@ def phase_kernels() -> dict:
         log(info.log)
     errs = {"ivf_scan_q8_topk": 0.0, "kmeans_assign_update": 0.0,
             "kmeans_mstep": 0.0, "ivf_scan_topk": 0.0, "ivf_scan": 0.0,
-            "pairwise_l2": 0.0}
+            "pairwise_l2": 0.0, "ivf_scan_clustermajor": 0.0,
+            "ivf_scan_q8": 0.0}
 
     def k1(case, k2, *shape, **kw):
         e = check_k1(case, k2, *q8_inputs(*shape, **kw))
@@ -454,6 +596,38 @@ def phase_kernels() -> dict:
                             ("K > N 100x300x20", (100, 300, 20))):
         a, b = kmeans_inputs(n, k, d, seed=n + k)
         errs["pairwise_l2"] = max(errs["pairwise_l2"], check_b5(case, a, b))
+
+    for case, shape, kw in (
+            ("main union A458 L128 D128 B32", (600, 128, 128, 32, 458), {}),
+            ("ragged B13 dup+out-of-range NaN row", (40, 48, 24, 13, 9),
+             dict(nan_row=True)),
+            ("D=1024 L=64 B5", (20, 64, 1024, 5, 7), {})):
+        errs["ivf_scan_clustermajor"] = max(
+            errs["ivf_scan_clustermajor"],
+            check_b6b(case, *cmajor_inputs(*shape, seed=sum(shape), **kw)))
+    for case, shape, kw in (
+            ("main resident B32 P16 L128 D128", (600, 128, 128, 32, 16),
+             dict(masked=0.2)),
+            ("ragged B13 masked+dup+out-of-range NaN norm",
+             (40, 48, 24, 13, 7), dict(masked=0.3, nan_norm=True)),
+            ("D=1024 L=64 B3", (20, 64, 1024, 3, 4), {})):
+        errs["ivf_scan_q8"] = max(
+            errs["ivf_scan_q8"],
+            check_b7(case, *q8_legacy_inputs(*shape, seed=sum(shape), **kw)))
+
+    # a NaN in one live row of B6a and one input row of B5 stays NaN
+    from repro_torch.kernels import ivf_scan as scan
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    post, _, cids, mask, q = f32_inputs(40, 48, 24, 13, 7, seed=23)
+    mask[:] = True
+    post[int(cids[2, 1]), 7, 3] = float("nan")
+    check_nan_kept("B6a NaN row", scan.ivf_scan_cuda(post, cids, mask, q),
+                   scan.ivf_scan_plain(post, cids, mask, q))
+    a, b = kmeans_inputs(700, 90, 24, seed=24)
+    a[33, 4] = float("nan")
+    check_nan_kept("B5 NaN input row", pw.pairwise_l2_cuda(a, b),
+                   pw.pairwise_l2_plain(a, b))
     return errs
 
 
@@ -483,7 +657,7 @@ def phase_build(work: str) -> dict:
         x, cfg, os.path.join(work, "build"), queries=q_train,
         query_topk=np.minimum(topk, 50).astype(np.int32), device=DEVICE)
     build_s = time.perf_counter() - t0
-    launches = LAUNCHES.snapshot()
+    launches = path_launches("1M build (phase 3)")
     log(f"[build] {build_s:.1f} s stages "
         + " ".join(f"{k}={v:.1f}s" for k, v in report.stage_seconds.items())
         + f" n_clusters={report.n_clusters} "
@@ -528,7 +702,7 @@ def phase_serve(work: str, built: dict) -> dict:
     t0 = time.perf_counter()
     out = pipe.run_pipelined(batches, depth=2)
     wall = time.perf_counter() - t0
-    launches = LAUNCHES.snapshot()
+    launches = path_launches("q8 streamed (phase 4)")
     ids = np.concatenate([o.ids for o in out])
     nprobe = np.concatenate([o.nprobe for o in out])
     if ids.shape != (len(queries), 10) or (ids < 0).any():
@@ -605,20 +779,10 @@ def profile_run(run, what: str) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if not spans:
+    busy = device_busy_us(prof)
+    if busy < 0:
         log("[profile] no device activity recorded: busy share not measured")
         return {"device_busy": -1.0}
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
     top = sorted(prof.key_averages(),
                  key=lambda k: -getattr(k, "self_device_time_total", 0.0))
     log(f"[profile] top device time over {what} "
@@ -626,6 +790,24 @@ def profile_run(run, what: str) -> dict:
             f"{k.key[:60]} {getattr(k, 'self_device_time_total', 0.0) / 1e3:.3f} ms"
             for k in top[:8]))
     return {"device_busy": busy / wall_us}
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds in which at least one device activity of the profile
+    ran (the union of their intervals); -1 when none was recorded."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if not spans:
+        return -1.0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + cur_e - cur_s
 
 
 def probe_ceiling(pipe, batches, nprobe, true10) -> float:
@@ -736,7 +918,7 @@ def phase_resident(built: dict, served: dict) -> dict:
         outs = [serve_step(idx, llsp, qd, tk, cfg) for qd in qds]
         ids = torch.cat([o["ids"] for o in outs]).cpu().numpy()
         wall = time.perf_counter() - t0
-        launches = LAUNCHES.snapshot()
+        launches = path_launches(f"resident {what} serve_step (phase 7)")
         dists = torch.cat([o["dists"] for o in outs]).cpu().numpy()
         nprobe = torch.cat([o["nprobe"] for o in outs]).cpu().numpy()
         if ids.shape != (len(qds) * BATCH, 10) or (ids < 0).any() \
@@ -784,7 +966,7 @@ def phase_resident(built: dict, served: dict) -> dict:
     t0 = time.perf_counter()
     lev = [serve_leveled(index, llsp, q, tkq, cfg) for q, tkq in batches]
     lev_wall = time.perf_counter() - t0
-    lev_launches = LAUNCHES.snapshot()
+    lev_launches = path_launches("resident serve_leveled (phase 7)")
     lev_ids = np.concatenate([r["ids"] for r in lev])
     lev_np = np.concatenate([r["nprobe"] for r in lev])
     leveled = {"recall": recall_at_k(lev_ids, true10),
@@ -813,9 +995,8 @@ def phase_resident(built: dict, served: dict) -> dict:
         f"(max_abs_err={err:.3g})")
     cids, mask = resident_plan(index, llsp, qds[0], tk, cfg)
     return {"fused": fused, "legacy": legacy, "leveled": leveled, "q8": q8,
-            "plan0": (cids, mask, qds[0]),
-            "index": (index.postings, index.posting_ids),
-            "leveled_launches": lev_launches["ivf_scan_topk"]}
+            "plan0": (cids, mask, qds[0]), "qindex": qindex,
+            "index": (index.postings, index.posting_ids)}
 
 
 # --------------------------------------------------------------------------
@@ -840,7 +1021,7 @@ def phase_streamed_f32(built: dict, served: dict, resident: dict) -> dict:
     t0 = time.perf_counter()
     out = pipe.run_pipelined(batches, depth=2)
     wall = time.perf_counter() - t0
-    launches = LAUNCHES.snapshot()
+    launches = path_launches("f32 streamed (phase 8)")
     if launches["ivf_scan_topk"] != len(batches):
         raise AssertionError(f"B2 launched {launches['ivf_scan_topk']} times "
                              f"for {len(batches)} scan dispatches")
@@ -935,7 +1116,8 @@ def phase_unfused(work: str) -> dict:
             queries=q_train, query_topk=np.minimum(topk, 50).astype(np.int32),
             device=DEVICE)
         secs = time.perf_counter() - t0
-        launches = LAUNCHES.snapshot()
+        launches = path_launches(f"{'fused' if fused else 'unfused'} build "
+                                 f"N={N_UNFUSED} (phase 10)")
         builds[fused] = {"index": index, "llsp": llsp, "launches": launches}
         log(f"[unfused] {'fused' if fused else 'unfused'} build: "
             f"{secs:.1f} s stages "
@@ -955,7 +1137,9 @@ def phase_unfused(work: str) -> dict:
         unf["index"], unf["llsp"], SearchConfig(**SERVE_CFG), vectors=x,
         flash_path=os.path.join(work, "flash-unfused.f32"), device=DEVICE)
     try:
+        LAUNCHES.reset()
         out = pipe.run_pipelined(batches, depth=2)
+        path_launches("q8 streamed on the unfused build (phase 10)")
         ids = np.concatenate([o.ids for o in out])
         nprobe = np.concatenate([o.nprobe for o in out])
         _, true10 = brute_force_topk(torch.from_numpy(x).to(DEVICE),
@@ -976,10 +1160,329 @@ def phase_unfused(work: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 11: the serving engine at full width, under open-loop traffic
+# --------------------------------------------------------------------------
+ENGINE_POLICY = dict(max_batch=32, max_wait_s=0.05, shed="degrade",
+                     degrade_nprobe=8, grouping="locality")
+# (tag, fraction of phase 4's QPS, deadline s, quality stack on)
+ENGINE_RUNS = (("a", 0.25, None, True), ("b", 0.75, 0.05, True),
+               ("c", 0.25, None, False), ("d", 0.75, 0.05, False))
+
+
+def engine_stack(dep, x, work: str, tag: str, quality: bool):
+    """ServeEngine + DynamicBatcher over ``dep``'s pipeline with the quality
+    stack of ``launch/serve.py`` (shadow lane on: one index) unless
+    ``quality`` is false, tracing on, and a VersionManager bound, as
+    ``run_single_node`` builds it."""
+    import argparse
+
+    from repro_torch.launch.serve import make_quality_stack
+    from repro_torch.lifecycle import VersionManager
+    from repro_torch.obs import Observability
+    from repro_torch.runtime import BatchPolicy, DynamicBatcher, ServeEngine
+
+    args = argparse.Namespace(no_quality=not quality, shadow_rate=0.01,
+                              duration=ENGINE_TRACE_S)
+    obs = Observability(1.0, enabled=True)
+    quality, harvest, slo = make_quality_stack(args, obs, vectors=x)
+    batcher = DynamicBatcher(BatchPolicy(**ENGINE_POLICY), [dep.name])
+    engine = ServeEngine({dep.name: dep.pipeline}, batcher, depth=2, obs=obs,
+                         quality=quality)
+    vm = VersionManager()
+    vm.deploy(dep.name, dep.pipeline)
+    vm.bind(engine)
+    return {"engine": engine, "obs": obs, "quality": quality,
+            "harvest": harvest, "slo": slo, "batcher": batcher,
+            "health": os.path.join(work, f"health-{tag}.json"),
+            "trace": os.path.join(work, f"trace-{tag}.json")}
+
+
+def service_estimate_ms(batcher) -> float:
+    """The batcher's service estimate for a full batch (its fixed overhead
+    plus max_batch times the per-query EWMA): what admission holds each
+    deadline against."""
+    pol = batcher.policy
+    return (pol.overhead_s + batcher.est_query_s * pol.max_batch) * 1e3
+
+
+def replay_open_loop(stack, dep, what: str, rate: float, deadline_s,
+                     seed: int) -> dict:
+    """Replay one open-loop single-tenant trace (top-k 10-50) through the
+    running engine, with torch.profiler (device activity only) over the
+    window; returns the counts, rates and latencies of the run, the span
+    over which the submitter really issued the arrivals, and the batcher's
+    service estimate before and after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+    from repro_torch.runtime import TenantSpec, multi_tenant_trace
+
+    engine, obs, batcher = stack["engine"], stack["obs"], stack["batcher"]
+    trace = multi_tenant_trace(
+        [TenantSpec(dep.name, rate, topk_lo=10, topk_hi=50,
+                    deadline_s=deadline_s, n_queries=len(dep.queries))],
+        ENGINE_TRACE_S, seed=seed)
+    est0 = service_estimate_ms(batcher)
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    late = 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for arr in trace:
+            lag = t0 + arr.t - time.monotonic()
+            if lag > 0:
+                time.sleep(lag)
+            else:
+                late = max(late, -lag)
+            engine.submit(dep.queries[arr.qrow], arr.topk, index=dep.name,
+                          deadline_s=arr.deadline_s)
+        span = time.monotonic() - t0
+        st = engine.stats
+        # a rejected arrival never entered the SQ (submit returned -1)
+        if st.submitted + st.rejected != len(trace):
+            raise AssertionError(f"{len(trace)} arrivals, {st.submitted} "
+                                 f"submitted, {st.rejected} rejected")
+        while st.completed < st.submitted and time.monotonic() - t0 < 120.0:
+            engine.qp.poll()
+            time.sleep(0.005)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+    launches = path_launches(f"engine run ({what}) (phase 11)")
+    engine.qp.poll()
+    busy_us = device_busy_us(prof)
+    busy = busy_us / (wall * 1e6) if busy_us >= 0 else -1.0
+    pct = obs.metrics.histogram("engine.latency_s").summary_ms()
+    bs = batcher.stats
+    served = st.completed - st.shed
+    return {"offered_qps": len(trace) / ENGINE_TRACE_S,
+            "arrival_span_s": span, "arrived_qps": len(trace) / span,
+            "max_submit_late_ms": late * 1e3,
+            "completed_qps": served / wall, "p50_ms": pct["p50_ms"],
+            "p99_ms": pct["p99_ms"], "arrivals": len(trace),
+            "submitted": st.submitted, "completed": st.completed,
+            "shed": st.shed, "shed_admission": bs.shed_admission,
+            "shed_formation": bs.shed_deadline, "degraded": st.degraded,
+            "rejected": st.rejected, "failed": st.failed,
+            "batches": st.batches,
+            "mean_batch": served / max(st.batches, 1),
+            "locality_batches": bs.locality_batches,
+            "max_queue_wait_ms": bs.max_queue_wait_s * 1e3,
+            "service_est_start_ms": est0,
+            "service_est_end_ms": service_estimate_ms(batcher),
+            "device_busy": busy, "wall_s": wall,
+            "drain_s": wall - span,
+            "k1_launches": launches["ivf_scan_q8_topk"]}
+
+
+def finish_stack(stack, what: str) -> dict:
+    """Stop the engine (drain), then the gates every run shares: nothing
+    lost, nothing failed, one harvest record per batched completion, the
+    health snapshot parses, the Perfetto export is well nested."""
+    import json as _json
+
+    from repro_torch.obs import check_well_nested, health_snapshot, \
+        write_health
+
+    engine = stack["engine"]
+    engine.stop(drain=True)
+    engine.qp.poll()
+    st = engine.stats
+    if st.submitted != st.completed or st.failed:
+        raise AssertionError(f"{what}: submitted {st.submitted} != completed "
+                             f"{st.completed}, failed {st.failed}")
+    q, h, slo = stack["quality"], stack["harvest"], stack["slo"]
+    out = {}
+    if q is not None:
+        q.drain()
+        batched = st.completed - st.shed
+        if h.appended != batched or len(h) != min(batched, h.capacity):
+            raise AssertionError(f"{what}: harvest {h.appended} appended, "
+                                 f"{len(h)} held, for {batched} completions")
+        slo.tick()
+        write_health(stack["health"], health_snapshot(
+            slo=slo, quality=q, registry=stack["obs"].metrics))
+        with open(stack["health"]) as f:
+            doc = _json.load(f)
+        summary = q.summary()
+        q.close()
+        out = {"harvest": len(h), "audits": summary["audits_done"],
+               "proxy_p50": summary["proxy"]["p50"],
+               "alerts": sorted(n for n, a in doc["alerts"].items()
+                                if a["state"] == "firing")}
+    doc_t = stack["obs"].trace.export(stack["trace"])
+    check_well_nested(doc_t["traceEvents"])
+    # the poller's host time per batch, by stage, from the trace's spans
+    spans: dict = {}
+    for e in doc_t["traceEvents"]:
+        if e.get("ph") == "X":
+            n, tot = spans.get(e["name"], (0, 0.0))
+            spans[e["name"]] = (n + 1, tot + e.get("dur", 0.0))
+    stage_ms = {k: tot / n / 1e3 for k, (n, tot) in sorted(spans.items())}
+    svc = stack["obs"].metrics.histogram("engine.batch_service_s").summary_ms()
+    return {**out, "trace_events": len(doc_t["traceEvents"]),
+            "service_p50_ms": svc["p50_ms"], "service_p99_ms": svc["p99_ms"],
+            "stage_ms": stage_ms}
+
+
+def phase_engine(work: str, built: dict, served: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.core.distance import recall_at_k
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.synthetic import make_queries
+    from repro_torch.launch.serve import deploy_built, probe_completions, \
+        undeploy, warm_batch_sizes
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+    from repro_torch.runtime import BatchPolicy
+    from repro_torch.storage import ChunkArena
+
+    x, spec = built["x"], built["spec"]
+    scfg = SearchConfig(**SERVE_CFG, use_kernel=True, fused_topk=True)
+    # the arena's default 64 MiB chunks: serve.py's 1 MiB chunk is sized for
+    # its dim-32 corpora, and a flash extent of 4096 rows of D 128 is 2 MiB
+    arena = ChunkArena(n_devices=12, device_bytes=1 << 30)
+    probes, _ = make_queries(spec, ENGINE_PROBES, seed=7)
+    dep = deploy_built(arena, spec.name, spec, os.path.join(work, "engine"),
+                       8, scfg, built["index"], built["llsp"], x, probes,
+                       device=DEVICE)
+    pipe = dep.pipeline
+    warm = warm_batch_sizes(BatchPolicy(**ENGINE_POLICY), pipe.pad_batch)
+    pipe.warmup(batch_sizes=warm)
+    out = {"deploy": {"clusters": dep.meta.n_clusters,
+                      "extents": len(dep.meta.extents),
+                      "arena_free_mib": arena.free_bytes >> 20,
+                      "striping_rows": dep.striping.rows_per_shard,
+                      "replicated": int((dep.replica_map.replicas[:, 1]
+                                         >= 0).sum()),
+                      "warm_sizes": list(warm)}}
+    log(f"[engine] deployed {spec.name}: " + str(out["deploy"]))
+    base = served["qps"]
+    try:
+        # (c) and (d) replay (a)'s and (b)'s traces without the quality
+        # stack (no shadow audits over the 1M corpus, no harvest, no SLO),
+        # to show what it costs at each rate
+        for tag, frac, deadline, quality in ENGINE_RUNS:
+            stack = engine_stack(dep, x, work, tag, quality)
+            stack["engine"].start()
+            try:
+                res = replay_open_loop(stack, dep, tag, frac * base, deadline,
+                                       seed=31 + int(frac * 4))
+                if tag == "a":
+                    LAUNCHES.reset()
+                    comps, rows = probe_completions(
+                        stack["engine"], probes, dep.name, timeout_s=120.0)
+                    probe_launches = path_launches(
+                        "engine recall probes (phase 11)")["ivf_scan_q8_topk"]
+            finally:
+                stack["engine"].stop(drain=True)
+            res.update(finish_stack(stack, f"engine ({tag})"))
+            res["deadline_ms"] = None if deadline is None else deadline * 1e3
+            log(f"[engine] ({tag}) {frac}x phase-4 QPS: " + " ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in res.items()))
+            if res["k1_launches"] != res["batches"]:
+                raise AssertionError(f"engine ({tag}): K1 launched "
+                                     f"{res['k1_launches']} times for "
+                                     f"{res['batches']} scan dispatches")
+            if deadline is None and (res["shed"] or res["degraded"]):
+                raise AssertionError(f"engine ({tag}): best-effort traffic "
+                                     f"was shed {res['shed']} / degraded "
+                                     f"{res['degraded']}")
+            out[tag] = res
+        # the engine's ids against run_sequential on the same queries
+        seq = pipe.run_sequential(
+            [(probes[i:i + BATCH], np.full(len(probes[i:i + BATCH]), 10,
+                                           np.int32))
+             for i in range(0, len(probes), BATCH)])
+        if len(rows) != len(probes):
+            raise AssertionError(f"engine probes: {len(rows)} of "
+                                 f"{len(probes)} completed")
+        s_ids = np.concatenate([o.ids for o in seq])
+        s_d = np.concatenate([o.dists for o in seq])
+        s_np = np.concatenate([o.nprobe for o in seq])
+        e_ids = np.stack([c.ids for c in comps])
+        e_d = np.stack([c.dists for c in comps])
+        e_np = np.array([c.nprobe for c in comps])
+        same = e_np == s_np
+        flips = int((~same).sum())
+        if flips > 0.02 * len(s_np):
+            raise AssertionError(f"engine vs run_sequential: {flips} nprobe "
+                                 f"flips")
+        candidates_match(e_d[same], e_ids[same], s_d[same], s_ids[same],
+                         F32_TOL, "engine vs run_sequential ids")
+        true10 = dep.true10
+        r_e, r_s = recall_at_k(e_ids, true10), recall_at_k(s_ids, true10)
+        log(f"[engine] probes through the engine: {len(rows)} queries, "
+            f"recall10={r_e:.4g} (run_sequential {r_s:.4g}), nprobe "
+            f"flips={flips}, K1 launches={probe_launches}")
+        if abs(r_e - r_s) > 0.005:
+            raise AssertionError(f"engine recall {r_e} vs run_sequential "
+                                 f"{r_s}")
+        out["probe"] = {"recall10": r_e, "seq_recall10": r_s,
+                        "flips": flips}
+    finally:
+        undeploy(arena, dep)
+    arena.validate()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the port's CLI with the reference's own defaults
+# --------------------------------------------------------------------------
+def phase_cli(work: str) -> dict:
+    import re
+
+    outs = {k: os.path.join(work, f"cli-{k}") for k in
+            ("health.json", "harvest.npz", "trace.json")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           DEVICE, "--indexes", "2", "--duration", "6", "--n", str(CLI_N),
+           "--fail-shard", "3",
+           "--rebuild", "--health-out", outs["health.json"],
+           "--harvest-out", outs["harvest.npz"],
+           "--trace-out", outs["trace.json"]]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    text = proc.stdout
+    for line in text.splitlines():
+        if line.startswith(("[deploy]", "[serve] replaying", "[fault]",
+                            "[swap]", "[health]", "[done]", "[batcher]",
+                            "[quality]")):
+            log(f"[cli] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI exited {proc.returncode}:\n"
+                             f"{text[-3000:]}\n{proc.stderr[-3000:]}")
+    done = [ln for ln in text.splitlines() if ln.startswith("[done]")]
+    swap = [ln for ln in text.splitlines()
+            if ln.startswith("[swap]") and "retired=True" in ln]
+    hb = re.search(r"heartbeat-detected failures at shutdown: \[([\d, ]*)\]"
+                   r" \(injected: \[([\d, ]*)\]\)", text)
+    recalls = dict(re.findall(r"\[health\] (\w+): recall@10=([\d.]+)",
+                              text))
+    if not done or not swap:
+        raise AssertionError("serve CLI: no [done] line or no retired swap")
+    injected = [int(v) for v in hb.group(2).split(",")] if hb else []
+    detected = [int(v) for v in hb.group(1).split(",") if v.strip()] \
+        if hb else []
+    if not injected or not set(injected) <= set(detected):
+        raise AssertionError(f"serve CLI: heartbeat reported {detected} for "
+                             f"injected {injected}")
+    if set(recalls) != {"sift", "redsrch"}:
+        raise AssertionError(f"serve CLI: recall lines for {recalls}")
+    log(f"[cli] {done[0]} ({secs:.1f} s including three builds of "
+        f"{CLI_N} vectors)")
+    return {"seconds": secs, "done": done[0], "recalls": recalls,
+            "heartbeat_failed": detected}
+
+
+# --------------------------------------------------------------------------
 # phase 6: kernel times at the main path's shapes
 # --------------------------------------------------------------------------
 def phase_times(built: dict, served: dict, kernel_errs: dict,
-                resident: dict, streamed: dict, unfused: dict) -> list:
+                resident: dict, streamed: dict) -> list:
     import numpy as np
     import torch
 
@@ -1017,18 +1520,13 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     flops = pairs * (2 * l * d + 4 * l + 3 * d)
     rows.append(_row("ivf_scan_q8_topk", "src/repro_torch/csrc/ivf_scan_q8.cu",
                      "src/repro/kernels/ivf_scan_q8.py:174",
-                     served["k1_launches"], kernel_errs["ivf_scan_q8_topk"],
+                     kernel_errs["ivf_scan_q8_topk"],
                      ms, plain, nbytes, flops,
                      "no single PyTorch call computes a unique-by-id top-k2 "
                      "over int8 residual codes",
                      f"B={b} P={plan.pmask.shape[1]} R={fetched.q8.shape[0]} "
                      f"used_rows={used} L={l} D={d} k2={k2}",
-                     wrapper_ms=wrapper,
-                     launches_by_path={"q8 streamed (phase 4)":
-                                       served["k1_launches"],
-                                       "q8 resident (phase 7)":
-                                       resident["q8"]["launches"][
-                                           "ivf_scan_q8_topk"]}))
+                     wrapper_ms=wrapper))
     # K2: the build's largest call, all points against the final centroids
     x = torch.from_numpy(built["x"]).cuda()
     cents = built["index"].centroids.contiguous()
@@ -1041,7 +1539,6 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     rows.append(_row("kmeans_assign_update",
                      "src/repro_torch/csrc/kmeans_assign.cu",
                      "src/repro/kernels/kmeans_assign.py:108",
-                     built["launches"]["kmeans_assign_update"],
                      kernel_errs["kmeans_assign_update"], ms, plain, nbytes,
                      2 * n * k * d,
                      "no single PyTorch call fuses the argmin with the "
@@ -1060,14 +1557,24 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     nbytes = 8 * 128 * 4 * 2 + 8 * 4 + n_empty * 128 * 4
     rows.append(_row("kmeans_mstep", "src/repro_torch/csrc/kmeans_mstep.cu",
                      "src/repro/kernels/kmeans_mstep.py:90",
-                     built["launches"]["kmeans_mstep"],
                      kernel_errs["kmeans_mstep"], ms, plain, nbytes, 8 * 128,
                      "no single PyTorch call divides by the counts and "
                      "reseeds the empty clusters by rank",
                      "K=8 D=128 (hierarchical splitter)"))
     rows.append(b2_row(streamed, resident, kernel_errs))
-    rows.append(b6a_row(built, resident, kernel_errs))
-    rows.append(b5_row(built, unfused, kernel_errs))
+    rows.append(b6a_row(resident, kernel_errs))
+    rows.append(b5_row(built, kernel_errs))
+    rows.append(b6b_row(resident, kernel_errs))
+    rows.append(b7_row(resident, kernel_errs))
+    for r in rows:
+        if r["name"] in NO_PATH:
+            # the reference runs these through kernels.ops only, and so
+            # does the port: a launch on a main path would be news
+            if r["launches"]:
+                raise AssertionError(f"{r['name']} launched on a main path: "
+                                     f"{r['launches_by_path']}")
+        elif r["launches"] < 1:
+            raise AssertionError(f"{r['name']} launched on no main path")
     return rows
 
 
@@ -1123,17 +1630,14 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
     r_bytes, r_flops, r_used, r_pairs = b2_work(rtc, rqs, l, d,
                                                 qd.shape[0], k2)
     r_bound = max(r_bytes / HBM_BYTES_PER_S, r_flops / FP32_FLOP_PER_S) * 1e3
-    launches = {"f32 resident serve_step (phase 7)":
-                resident["fused"]["launches"]["ivf_scan_topk"],
-                "f32 streamed pipeline (phase 8)": streamed["b2_launches"]}
     return _row("ivf_scan_topk", "src/repro_torch/csrc/ivf_scan_topk.cu",
-                "src/repro/kernels/ivf_scan.py:332", sum(launches.values()),
+                "src/repro/kernels/ivf_scan.py:332",
                 kernel_errs["ivf_scan_topk"], ms, plain, nbytes, flops,
                 "no single PyTorch call computes a unique-by-id top-k2 over "
                 "the probed posting rows",
                 f"phase-8 batch: B={b} P={pmask.shape[1]} R={post.shape[0]} "
                 f"used_rows={used} pairs={pairs} L={l} D={d} k2={k2} bq=8",
-                wrapper_ms=wrapper, launches_by_path=launches,
+                wrapper_ms=wrapper,
                 resident={"ms": r_ms, "wrapper_ms": r_wrapper,
                           "plain_ms": r_plain, "bound_ms": r_bound,
                           "shape": f"B={qd.shape[0]} "
@@ -1141,7 +1645,7 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
                                    f"used_rows={r_used} pairs={r_pairs}"})
 
 
-def b6a_row(built: dict, resident: dict, kernel_errs: dict) -> dict:
+def b6a_row(resident: dict, kernel_errs: dict) -> dict:
     """B6a on one resident batch (phase 7's first batch plan)."""
     from repro_torch.kernels import ivf_scan as scan
 
@@ -1157,17 +1661,80 @@ def b6a_row(built: dict, resident: dict, kernel_errs: dict) -> dict:
     flops = (live + uniq) * l * 2 * d
     return _row("ivf_scan", "src/repro_torch/csrc/ivf_scan.cu",
                 "src/repro/kernels/ivf_scan.py:111",
-                resident["legacy"]["launches"]["ivf_scan"],
                 kernel_errs["ivf_scan"], ms, plain, nbytes, flops,
                 "no single PyTorch call gathers each query's probed blocks "
                 "and computes their distances",
                 f"resident batch: B={b} P={p} C={post.shape[0]} live={live} "
-                f"unique_clusters={uniq} L={l} D={d}",
-                launches_by_path={"f32 resident legacy serve_step (phase 7)":
-                                  resident["legacy"]["launches"]["ivf_scan"]})
+                f"unique_clusters={uniq} L={l} D={d}")
 
 
-def b5_row(built: dict, unfused: dict, kernel_errs: dict) -> dict:
+# kernels that no main path runs, in the reference as in the port: their
+# rows must count no launch
+NO_PATH = ("ivf_scan_clustermajor", "ivf_scan_q8")
+
+
+def b6b_row(resident: dict, kernel_errs: dict) -> dict:
+    """B6b on the probed-cluster union of one resident batch (phase 7's
+    first plan): every row of each active cluster against all 32 queries."""
+    import torch
+
+    from repro_torch.kernels import ivf_scan as scan
+
+    cids, mask, qd = resident["plan0"]
+    post, _ = resident["index"]
+    live = mask & (cids >= 0)
+    active = torch.unique(cids[live]).to(torch.int32).contiguous()
+    qsel = ((cids[None, :, :] == active[:, None, None])
+            & live[None]).any(dim=-1).contiguous()           # (A, B)
+    qd = qd.contiguous()
+    ms = time_ms(lambda: scan.ivf_scan_clustermajor_cuda(post, active, qsel,
+                                                         qd), n=100)
+    plain = time_ms(lambda: scan.ivf_scan_clustermajor_plain(
+        post, active, qsel, qd), n=10)
+    a_n = active.numel()
+    _, l, d = post.shape
+    b = qd.shape[0]
+    nbytes = a_n * l * d * 4 + b * d * 4 + a_n * 4 + a_n * b \
+        + a_n * l * b * 4
+    flops = a_n * l * b * 2 * d + a_n * l * 2 * d + b * 2 * d
+    return _row("ivf_scan_clustermajor",
+                "src/repro_torch/csrc/ivf_scan_clustermajor.cu",
+                "src/repro/kernels/ivf_scan.py:160",
+                kernel_errs["ivf_scan_clustermajor"], ms, plain, nbytes,
+                flops, "no single PyTorch call gathers the active clusters "
+                "and masks the unselected (cluster, query) pairs",
+                f"resident batch union: A={a_n} L={l} D={d} B={b} "
+                f"selected_pairs={int(qsel.sum())}")
+
+
+def b7_row(resident: dict, kernel_errs: dict) -> dict:
+    """B7 on one resident batch (phase 7's first plan) over the q8
+    payload of the resident index."""
+    from repro_torch.kernels import ivf_scan_q8 as q8m
+
+    cids, mask, qd = resident["plan0"]
+    qi = resident["qindex"]
+    args = (qi.q8, qi.qscale, qi.qnorm2, qi.centroids, cids.contiguous(),
+            mask.contiguous(), qd.contiguous())
+    ms = time_ms(lambda: q8m.ivf_scan_q8_cuda(*args), n=100)
+    plain = time_ms(lambda: q8m.ivf_scan_q8_plain(*args), n=10)
+    _, l, d = qi.q8.shape
+    b, p = cids.shape
+    live = int(mask.sum())
+    uniq = int(cids[mask].unique().numel())
+    nbytes = uniq * (l * d + l * 4 + d * 4 + 4) + b * d * 4 + b * p * 5 \
+        + b * p * l * 4
+    flops = live * (l * (2 * d + 3) + 3 * d)
+    return _row("ivf_scan_q8", "src/repro_torch/csrc/ivf_scan_q8_legacy.cu",
+                "src/repro/kernels/ivf_scan_q8.py:83",
+                kernel_errs["ivf_scan_q8"], ms, plain, nbytes, flops,
+                "no single PyTorch call gathers each query's probed int8 "
+                "blocks and computes the residual-form distances",
+                f"resident batch: B={b} P={p} C={qi.q8.shape[0]} live={live} "
+                f"unique_clusters={uniq} L={l} D={d}")
+
+
+def b5_row(built: dict, kernel_errs: dict) -> dict:
     """B5 on one 16,384-row build chunk against the final 1M centroids,
     with torch.cdist as the library yardstick."""
     import torch
@@ -1183,22 +1750,25 @@ def b5_row(built: dict, unfused: dict, kernel_errs: dict) -> dict:
     m = b.shape[0]
     return _row("pairwise_l2", "src/repro_torch/csrc/pairwise_l2.cu",
                 "src/repro/kernels/pairwise_l2.py:71",
-                unfused["launches"]["pairwise_l2"], kernel_errs["pairwise_l2"],
+                kernel_errs["pairwise_l2"],
                 ms, plain, (n + m) * d * 4 + n * m * 4, 2 * n * m * d,
                 "torch.cdist(a, b): the square root of the same quantity "
                 "(Euclidean, not squared), timed as the yardstick",
                 f"N={n} M={m} D={d} (one build chunk vs the final centroids)",
-                library_ms=library,
-                launches_by_path={f"unfused build N={N_UNFUSED} (phase 10)":
-                                  unfused["launches"]["pairwise_l2"]})
+                library_ms=library)
 
 
-def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,
+def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
          library_note, shape, *, library_ms=None, **extra) -> dict:
+    """One kernel's JSON row; its launches are the sum over every main-path
+    run that :func:`path_launches` recorded."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_path = {what: counts[name] for what, counts in PATH_RUNS.items()
+               if counts[name]}
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": int(launches),
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": float(err), "ms": float(ms),
             "plain_ms": float(plain_ms), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1230,9 +1800,10 @@ def main() -> int:
         resident = phase_resident(built, served)
         streamed = phase_streamed_f32(built, served, resident)
         phase_cpu_resident(built, served, resident)
-        unfused = phase_unfused(work)
-        rows = phase_times(built, served, kernel_errs, resident, streamed,
-                           unfused)
+        phase_unfused(work)
+        phase_engine(work, built, served)
+        phase_cli(work)
+        rows = phase_times(built, served, kernel_errs, resident, streamed)
     finally:
         if served is not None:
             served["pipe"].close()

@@ -4,9 +4,10 @@
 // src/repro/kernels/ivf_scan.py.  For every (query b, probe p) it writes the
 // L distances of query b to the rows of cluster clamp(cids[b, p], 0, C - 1):
 //
-//   out[b, p, l] = max(||q||^2 - 2 q . p_l + ||p_l||^2, 0),
+//   out[b, p, l] = clamp0(||q||^2 - 2 q . p_l + ||p_l||^2),
 //
-// or +inf for all L when mask[b, p] is false.  Pad ids are not looked at:
+// or +inf for all L when mask[b, p] is false; clamp0(d) is `d < 0 ? 0 : d`,
+// which keeps a NaN as jnp.maximum(d, 0.0) does.  Pad ids are not looked at:
 // the caller masks them, as the reference's caller does.
 //
 // What bounds it on an H100: every (b, p) reads its (L, D) block, so a batch
@@ -81,7 +82,10 @@ ivf_scan_kernel(const float* __restrict__ post, const int* __restrict__ cids,
       dot += __shfl_xor_sync(kFull, dot, off);
       pn += __shfl_xor_sync(kFull, pn, off);
     }
-    if (lane == 0) o[l] = fmaxf(q2 - 2.0f * dot + pn, 0.0f);
+    if (lane == 0) {
+      const float d = q2 - 2.0f * dot + pn;
+      o[l] = d < 0.0f ? 0.0f : d;        // keeps NaN, as jnp.maximum does
+    }
   }
 }
 

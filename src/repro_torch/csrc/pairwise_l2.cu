@@ -3,7 +3,9 @@
 // Replaces the Pallas kernel `pairwise_l2` (body `_kernel`) of
 // src/repro/kernels/pairwise_l2.py.  For a (N, D) and b (M, D), f32:
 //
-//   out[i, j] = max(||a_i||^2 - 2 a_i . b_j + ||b_j||^2, 0)     (N, M) f32.
+//   out[i, j] = clamp0(||a_i||^2 - 2 a_i . b_j + ||b_j||^2)     (N, M) f32,
+//
+// clamp0(d) = `d < 0 ? 0 : d`, which keeps a NaN as jnp.maximum(d, 0.0) does.
 //
 // It is the distance tile of the unfused k-means E-step
 // (kernels/ops.kmeans_assign), whose argmin and min run outside the kernel.
@@ -95,7 +97,10 @@ pairwise_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < M) orow[gn] = fmaxf(an - 2.0f * acc[i][j] + b2[gn], 0.0f);
+      if (gn < M) {
+        const float dv = an - 2.0f * acc[i][j] + b2[gn];
+        orow[gn] = dv < 0.0f ? 0.0f : dv;  // keeps NaN, as jnp.maximum does
+      }
     }
   }
 }

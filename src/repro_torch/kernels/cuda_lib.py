@@ -32,7 +32,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / ".kernel_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ivf_scan_q8_topk", "kmeans_assign_update", "kmeans_mstep",
-           "ivf_scan_topk", "ivf_scan", "pairwise_l2")
+           "ivf_scan_topk", "ivf_scan", "pairwise_l2",
+           "ivf_scan_clustermajor", "ivf_scan_q8")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "ivf_scan_topk_smem_bytes": [_I, _I, _I],
     "ivf_scan_launch": [_P] * 5 + [_I] * 5 + [_P],
     "pairwise_l2_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "ivf_scan_q8_legacy_launch": [_P] * 8 + [_I] * 5 + [_P],
     "repro_cuda_error_string": [_I],
 }
 _RESTYPES = {"ivf_scan_q8_topk_smem_bytes": ctypes.c_size_t,

@@ -11,6 +11,11 @@
 * B6a ``ivf_scan``, the legacy scan: (B, P, L) distances, masked probes
   +inf.  :func:`ivf_scan_cuda` launches ``csrc/ivf_scan.cu``;
   :func:`ivf_scan_plain` is the plain version.
+* B6b ``ivf_scan_clustermajor``, the cluster-major legacy scan: (A, L, B)
+  distances from every row of each active cluster to every query,
+  unselected (cluster, query) pairs +inf.  :func:`ivf_scan_clustermajor_cuda`
+  launches ``csrc/ivf_scan_clustermajor.cu``;
+  :func:`ivf_scan_clustermajor_plain` is the plain version.
 
 ``kernels/ops.py`` chooses between kernel and plain version by the device
 of the tensors.
@@ -22,7 +27,7 @@ import torch
 from repro_torch.core.distance import INF
 
 from . import cuda_lib
-from .ref import ivf_scan_ref
+from .ref import ivf_scan_clustermajor_ref, ivf_scan_ref
 
 BQ = 8                      # queries per tile of the f32 fused scan
 MAX_K2 = 256
@@ -269,6 +274,55 @@ def ivf_scan_cuda(postings, cids, mask, queries) -> torch.Tensor:
                              mask.data_ptr(), queries.data_ptr(),
                              out.data_ptr(), b, c, p, l, d,
                              cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, what)
+    cuda_lib.LAUNCHES.add(what)
+    return out
+
+
+def ivf_scan_clustermajor_plain(postings, active, qsel, queries
+                                ) -> torch.Tensor:
+    """Plain torch version of B6b: (A, L, B) f32, unselected pairs +inf.
+    The kernel computes each (row, query) distance in the oracle's norm
+    form, so the oracle is the plain version."""
+    return ivf_scan_clustermajor_ref(postings, active, qsel, queries)
+
+
+def ivf_scan_clustermajor_cuda(postings, active, qsel, queries
+                               ) -> torch.Tensor:
+    """Launch B6b on the tensors' CUDA device (current stream).
+
+    Takes postings (C, L, D) f32, active (A,) int32 (clamped to [0, C) in
+    the kernel), qsel (A, B) bool, queries (B, D) f32, contiguous on one
+    CUDA device.  Any D and L; anything else raises, nothing falls back."""
+    what = "ivf_scan_clustermajor"
+    dev = queries.device
+    tensors = dict(postings=postings, active=active, qsel=qsel,
+                   queries=queries)
+    _require(dev.type == "cuda", what, f"needs CUDA tensors, got {dev}")
+    for name, t in tensors.items():
+        _require(t.device == dev, what, f"{name} on {t.device}, "
+                                        f"queries on {dev}")
+        _require(t.is_contiguous(), what, f"{name} is not contiguous")
+    _require(postings.dtype == torch.float32, what, "postings must be f32")
+    _require(queries.dtype == torch.float32, what, "queries must be f32")
+    _require(active.dtype == torch.int32, what, "active must be int32")
+    _require(qsel.dtype == torch.bool, what, "qsel must be bool")
+    _require(postings.dim() == 3 and postings.shape[0] > 0, what,
+             f"postings shape {tuple(postings.shape)}")
+    c, l, d = postings.shape
+    b = queries.shape[0]
+    a = active.shape[0]
+    _require(active.dim() == 1, what, "active must be (A,)")
+    _require(qsel.shape == (a, b), what, "qsel shape")
+    _require(queries.dim() == 2 and queries.shape[1] == d, what,
+             "queries shape")
+    out = torch.empty((a, l, b), dtype=torch.float32, device=dev)
+    if a * l * b == 0:
+        return out
+    rc = cuda_lib.library().ivf_scan_clustermajor_launch(
+        postings.data_ptr(), active.data_ptr(), qsel.data_ptr(),
+        queries.data_ptr(), out.data_ptr(), a, c, l, b, d,
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, what)
     cuda_lib.LAUNCHES.add(what)
     return out

@@ -1,6 +1,8 @@
-"""Fused int8-residual posting scan with in-kernel dedup top-k2 (K1).
+"""int8-residual posting scans: the fused scan with in-kernel dedup top-k2
+(K1) and the legacy full-distance scan (B7).
 
-Port of ``repro.kernels.ivf_scan_q8.ivf_scan_q8_topk``.  The payload is the
+Port of ``repro.kernels.ivf_scan_q8`` (``ivf_scan_q8_topk`` and
+``ivf_scan_q8``).  The payload is the
 int8 residual code of ``core/quantize.py``; the distance uses the
 closed-form residual expansion
 
@@ -14,6 +16,11 @@ with the per-slot ``s^2 ||r8||^2`` precomputed (``norm2``).
 * :func:`ivf_scan_q8_topk_plain` is the plain torch version of the same
   function: the same plan, every planned (query, row) distance, then the
   ``extract_topk`` merge rule.
+* :func:`ivf_scan_q8_cuda` launches B7 (``csrc/ivf_scan_q8_legacy.cu``: one
+  block per (query, probe), (B, P, L) distances, masked probes +inf);
+  :func:`ivf_scan_q8_plain` is the arithmetic of
+  ``core.quantize.ivf_scan_quantized``, the reference's own yardstick for
+  this kernel.
 
 ``kernels/ops.py`` chooses between them by the device of the tensors.
 """
@@ -51,9 +58,9 @@ def ivf_scan_q8_topk_plain(q8, scale, norm2, centroids, posting_ids, cids,
     return extract_topk(d.reshape(b, -1), ids.reshape(b, -1), k2)
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, what: str = "ivf_scan_q8_topk") -> None:
     if not cond:
-        raise ValueError(f"ivf_scan_q8_topk kernel: {msg}")
+        raise ValueError(f"{what} kernel: {msg}")
 
 
 def ivf_scan_q8_topk_cuda(q8, scale, norm2, centroids, posting_ids, cids,
@@ -127,3 +134,61 @@ def ivf_scan_q8_topk_planned(q8, scale, norm2, centroids, posting_ids,
     cuda_lib.check(rc, "ivf_scan_q8_topk")
     cuda_lib.LAUNCHES.add("ivf_scan_q8_topk")
     return out_d, out_i
+
+
+def ivf_scan_q8_plain(q8, scale, norm2, centroids, cids, mask, queries
+                      ) -> torch.Tensor:
+    """Plain torch version of B7: (B, P, L) f32, cids clamped, masked
+    probes +inf, no id masking (dead slots read ||q - c||^2)."""
+    from repro_torch.core.quantize import QuantizedPostings, \
+        ivf_scan_quantized
+
+    return ivf_scan_quantized(QuantizedPostings(q8, scale, norm2), centroids,
+                              cids, mask, queries)
+
+
+def ivf_scan_q8_cuda(q8, scale, norm2, centroids, cids, mask, queries
+                     ) -> torch.Tensor:
+    """Launch B7 on the tensors' CUDA device (current stream).
+
+    Takes q8 (C, L, D) int8, scale (C, 1, 1) f32, norm2 (C, L) f32,
+    centroids (C, D) f32, cids (B, P) int32 (clamped to [0, C) in the
+    kernel), mask (B, P) bool, queries (B, D) f32, all contiguous on one
+    CUDA device, with D % 4 == 0, D <= 1024 and q8 4-byte aligned.
+    Anything else raises; nothing falls back to the plain version."""
+    def need(cond, msg):
+        _require(cond, msg, "ivf_scan_q8")
+
+    dev = queries.device
+    need(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    tensors = dict(q8=q8, scale=scale, norm2=norm2, centroids=centroids,
+                   cids=cids, mask=mask, queries=queries)
+    for name, t in tensors.items():
+        need(t.device == dev, f"{name} on {t.device}, queries on {dev}")
+        need(t.is_contiguous(), f"{name} is not contiguous")
+    need(q8.dtype == torch.int8, "q8 must be int8")
+    for name in ("scale", "norm2", "centroids", "queries"):
+        need(tensors[name].dtype == torch.float32, f"{name} must be f32")
+    need(cids.dtype == torch.int32, "cids must be int32")
+    need(mask.dtype == torch.bool, "mask must be bool")
+    need(q8.dim() == 3 and q8.shape[0] > 0, f"q8 shape {tuple(q8.shape)}")
+    c, l, d = q8.shape
+    b, p = cids.shape
+    need(scale.shape == (c, 1, 1), f"scale {tuple(scale.shape)}")
+    need(norm2.shape == (c, l), f"norm2 {tuple(norm2.shape)}")
+    need(centroids.shape == (c, d), "centroids shape")
+    need(mask.shape == (b, p), "mask shape")
+    need(queries.shape == (b, d), "queries shape")
+    need(d % 4 == 0 and 0 < d <= MAX_D, f"D={d} (multiple of 4, <= {MAX_D})")
+    need(q8.data_ptr() % 4 == 0, "q8 not 4-byte aligned")
+    out = torch.empty((b, p, l), dtype=torch.float32, device=dev)
+    if b * p * l == 0:
+        return out
+    rc = cuda_lib.library().ivf_scan_q8_legacy_launch(
+        q8.data_ptr(), scale.data_ptr(), norm2.data_ptr(),
+        centroids.data_ptr(), cids.data_ptr(), mask.data_ptr(),
+        queries.data_ptr(), out.data_ptr(), b, c, p, l, d,
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "ivf_scan_q8")
+    cuda_lib.LAUNCHES.add("ivf_scan_q8")
+    return out

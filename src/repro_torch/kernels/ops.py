@@ -88,3 +88,22 @@ def ivf_scan(postings, cids, mask, queries) -> torch.Tensor:
     if _on_cpu(queries):
         return _ivf.ivf_scan_plain(postings, cids, mask, queries)
     return _ivf.ivf_scan_cuda(postings, cids, mask, queries)
+
+
+def ivf_scan_clustermajor(postings, active, qsel, queries) -> torch.Tensor:
+    """Cluster-major legacy scan: (A, L, B) f32, unselected (cluster,
+    query) pairs +inf."""
+    if _on_cpu(queries):
+        return _ivf.ivf_scan_clustermajor_plain(postings, active, qsel,
+                                                queries)
+    return _ivf.ivf_scan_clustermajor_cuda(postings, active, qsel, queries)
+
+
+def ivf_scan_q8(q8, scale, norm2, centroids, cids, mask, queries
+                ) -> torch.Tensor:
+    """Legacy int8-residual scan: (B, P, L) f32, masked probes +inf."""
+    if _on_cpu(queries):
+        return _q8.ivf_scan_q8_plain(q8, scale, norm2, centroids, cids, mask,
+                                     queries)
+    return _q8.ivf_scan_q8_cuda(q8, scale, norm2, centroids, cids, mask,
+                                queries)

@@ -86,3 +86,18 @@ def ivf_scan_topk_ref(postings, posting_ids, cids, mask, queries, k2: int):
     d = torch.where(ids < 0, INF, d)
     b = queries.shape[0]
     return dedup_topk(d.reshape(b, -1), ids.reshape(b, -1), k2)
+
+
+def ivf_scan_clustermajor_ref(postings, active, qsel, queries
+                              ) -> torch.Tensor:
+    """Oracle for the cluster-major scan: (A, L, B) squared L2 from every
+    row of each active cluster (ids clamped to [0, C)) to every query, +inf
+    where qsel[a, b] is false."""
+    q = queries.to(torch.float32)                        # (B, D)
+    safe = torch.clamp(active.long(), 0, postings.shape[0] - 1)
+    g = postings[safe].to(torch.float32)                 # (A, L, D)
+    d = (torch.sum(g * g, dim=-1)[:, :, None]
+         - 2.0 * torch.einsum("ald,bd->alb", g, q)
+         + torch.sum(q * q, dim=-1)[None, None, :])
+    d = torch.clamp_min(d, 0.0)
+    return torch.where(qsel.bool()[:, None, :], d, INF)

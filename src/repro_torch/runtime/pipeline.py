@@ -81,6 +81,7 @@ class StageTimes:
     rerank_cands: int = 0          # candidates exact-scored before the stop
     rerank_stable_stop: bool = False  # top-k went stable before the
                                       # candidate list was exhausted
+    rerank_round_size: int = 0     # round width this batch used
 
     @property
     def total(self) -> float:
@@ -94,8 +95,16 @@ class BatchResult:
     dists: np.ndarray              # (b, k) float32
     nprobe: np.ndarray             # (b,) int32
     times: StageTimes
+    fresh_seq: int = -1            # freshness snapshot this batch scanned
+                                   # against (-1 = no fresh view attached)
+    partial: Optional[np.ndarray] = None   # (b,) bool: answered from an
+                                           # incomplete shard set; None =
+                                           # complete (always, single node)
+    partial_reason: str = "no_replica"     # why the shard set was incomplete
     quality: Optional[np.ndarray] = None   # (b,) rerank-agreement recall
                                            # proxy; None = no re-rank ran
+    shards: Optional[np.ndarray] = None    # (b,) int32 primary shard per
+                                           # query (sharded serving only)
 
 
 @dataclasses.dataclass
@@ -488,6 +497,7 @@ class PrefetchPipeline:
         t.rerank_start = time.perf_counter()
         exact = np.array(cand_d, np.float32, copy=True)
         step = max(int(rc.round_size), 1)
+        t.rerank_round_size = step
         n_rounds = -(-n // step)
         futs: dict[int, object] = {}
 
@@ -631,6 +641,17 @@ def overlap_efficiency(times: list[StageTimes]) -> float:
     return hidden / tot if tot > 0 else 0.0
 
 
+def stage_spans(t: StageTimes) -> list[tuple[str, float, float]]:
+    """(name, t0, t1) trace spans of one batch, from the stamps StageTimes
+    already holds (no extra clock reads).  Unstamped stages drop out."""
+    spans = [("plan", t.plan_start, t.plan_end),
+             ("gather", t.gather_start, t.gather_end),
+             ("stream", t.gather_end, t.stream_end),
+             ("scan", t.scan_dispatch, t.scan_done),
+             ("rerank", t.rerank_start, t.rerank_end)]
+    return [(n, a, b) for n, a, b in spans if b > a > 0.0]
+
+
 def rerank_overlap_efficiency(times: list[StageTimes]) -> float:
     """Fraction of batch i's re-rank seconds inside batch i+1's
     scan-in-flight window; 0.0 when nothing re-ranked or followed."""
@@ -692,3 +713,14 @@ def make_quantized_pipeline(index: IVFIndex, llsp_params, cfg: SearchConfig,
     return PrefetchPipeline(index, llsp_params, cfg, tier, flash=flash,
                             rerank=rerank, device=dev, **pipe_kw)
 
+
+def latency_percentiles(lat_s: list[float]) -> dict:
+    """p50 / p99 / mean in milliseconds of a list of latencies in seconds."""
+    if not lat_s:
+        return {"p50_ms": 0.0, "p99_ms": 0.0, "mean_ms": 0.0}
+    a = np.asarray(lat_s) * 1e3
+    return {
+        "p50_ms": float(np.percentile(a, 50)),
+        "p99_ms": float(np.percentile(a, 99)),
+        "mean_ms": float(a.mean()),
+    }

@@ -235,3 +235,104 @@ def test_unfused_build_on_card_launches_pairwise_l2(cuda, tmp_path):
     again, _, _ = build_index(x, cfg, str(tmp_path / "b"), device=cuda)
     assert index_content_hash(again) == index_content_hash(idx)
     assert rep.replication >= 1.0
+
+
+def _cmajor_case(c, l, d, b, a_n, seed, nan_row=False):
+    """Postings, an active-cluster list with duplicates and out-of-range
+    ids, a selection mask and queries; ``nan_row`` puts a NaN in one row of
+    an active cluster."""
+    rng = np.random.default_rng(seed)
+    post, _, _, _, q = f32_case(c, l, d, b, 1, seed=seed)
+    active = rng.integers(-2, c + 2, size=a_n).astype(np.int32)
+    active[-1] = active[0]
+    qsel = rng.random((a_n, b)) < 0.6
+    if nan_row:
+        post[np.clip(active[0], 0, c - 1), l // 2, d // 3] = np.nan
+        qsel[0] = True
+    return post, active, qsel, q
+
+
+CMAJOR_CASES = [  # (C, L, D, B, A, nan_row)
+    (16, 8, 16, 4, 6, False),
+    (32, 16, 32, 13, 12, True),          # ragged B, NaN in a live row
+    (20, 40, 1024, 5, 7, False),         # D 1024: several D slices
+    (600, 128, 128, 32, 458, False),     # the union of one streamed batch
+]
+
+
+@pytest.mark.parametrize("case", CMAJOR_CASES)
+def test_clustermajor_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import ivf_scan as tscan
+
+    c, l, d, b, a_n, nan_row = case
+    arrays = _dev(_cmajor_case(c, l, d, b, a_n, seed=a_n, nan_row=nan_row),
+                  cuda)
+    got = tscan.ivf_scan_clustermajor_cuda(*arrays)
+    want = tscan.ivf_scan_clustermajor_plain(*arrays)
+    torch.cuda.synchronize()
+    qsel = arrays[2]
+    assert (got.permute(0, 2, 1)[~qsel] == float("inf")).all()
+    assert torch.isnan(got).any() == nan_row
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+
+
+Q8_LEGACY_CASES = [  # (C, L, D, B, P, masked, nan_norm)
+    (16, 8, 16, 4, 4, 0.2, False),
+    (40, 48, 24, 13, 7, 0.3, True),      # ragged B, NaN in a live norm
+    (20, 64, 1024, 3, 4, 0.0, False),    # D 1024
+    (300, 128, 128, 32, 16, 0.1, False),  # one resident batch
+]
+
+
+@pytest.mark.parametrize("case", Q8_LEGACY_CASES)
+def test_q8_legacy_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    c, l, d, b, p, masked, nan_norm = case
+    q8, scale, norm2, cents, ids, cids, mask, q = q8_case(
+        c, l, d, b, p, seed=c + 1, dead=0.2, masked=masked, dup=True)
+    cids[0, -1] = c + 5                   # out of range: clamped to C - 1
+    cids[-1, 0] = -3                      # out of range: clamped to 0
+    if nan_norm:
+        mask[1, 2] = True
+        norm2[cids[1, 2], l // 2] = np.nan
+    arrays = _dev((q8, scale, norm2, cents, cids, mask, q), cuda)
+    got = tq8.ivf_scan_q8_cuda(*arrays)
+    want = tq8.ivf_scan_q8_plain(*arrays)
+    torch.cuda.synchronize()
+    m = arrays[5]
+    assert (got[~m] == float("inf")).all()
+    assert torch.isnan(got).any() == nan_norm
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["ivf_scan", "pairwise_l2"])
+def test_legacy_kernels_keep_a_nan_distance(cuda, kernel):
+    """A NaN in one live row must come out as NaN, as the reference's
+    jnp.maximum(d, 0.0) clamp keeps it (an fmaxf clamp would make it 0,
+    the nearest distance there is)."""
+    from repro_torch.kernels import ivf_scan as tscan
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    if kernel == "ivf_scan":
+        post, _, cids, mask, q = f32_case(12, 16, 32, 6, 4, seed=5,
+                                          masked=0.0)
+        post[cids[2, 1], 7, 3] = np.nan
+        args = _dev((post, cids, mask, q), cuda)
+        got = tscan.ivf_scan_cuda(*args)
+        want = tscan.ivf_scan_plain(*args)
+    else:
+        rng = np.random.default_rng(5)
+        a = rng.normal(size=(70, 24)).astype(np.float32)
+        b = rng.normal(size=(90, 24)).astype(np.float32)
+        a[33, 4] = np.nan
+        args = _dev((a, b), cuda)
+        got = tpw.pairwise_l2_cuda(*args)
+        want = tpw.pairwise_l2_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
