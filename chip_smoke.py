@@ -8,15 +8,22 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. kernels: builds the CUDA library from ``src/repro_torch/csrc`` and holds
    each kernel (q8 fused scan K1, k-means assign/update K2, k-means M-step
-   K3, f32 fused scan B2, legacy f32 scan B6a, pairwise L2 B5, cluster-major
-   f32 scan B6b, legacy q8 scan B7) against its plain torch version on the
-   card, at the main paths' shapes, at ragged ones and with a NaN payload
-   in a live row (which must come out NaN, as the reference's clamp keeps
-   it);
+   K3, batched Lloyd k-means K23, f32 fused scan B2, legacy f32 scan B6a,
+   pairwise L2 B5, cluster-major f32 scan B6b, legacy q8 scan B7) against
+   its plain torch version on the card, at the main paths' shapes, at
+   ragged ones and with a NaN payload in a live row (which must come out
+   NaN, as the reference's clamp keeps it); K23 also bit for bit against
+   the per-node K2 + sort + K3 loop it replaces, and K2 and K23 keep a NaN
+   distance (a NaN row, a NaN centroid) as their plain versions do;
 3. build: builds a SIFT1M-sized index (1,000,000 x 128, the
    ann-benchmarks sift-128-euclidean base size) with the port's own
    ``build_index`` (launch serve settings: max_cluster_size 96,
-   cluster_len 128, LLSP levels (8, 16), 8 ratio features);
+   cluster_len 128, LLSP levels (8, 16), 8 ratio features); prints stage
+   1's lockstep steps, K23's device time and the host's bookkeeping time;
+   then stage 1 per node on the card (K2 + sort + K3 per splitter node and
+   per oversized cell, as before K23) must give the same centroids bit for
+   bit, and on the first 20 chunks the lockstep splitter is timed beside
+   the per-node one and the per-node plain path on the host CPU;
 4. serve: ``make_quantized_pipeline`` with the flash re-rank, warmup, then
    ``run_pipelined(depth=2)`` over 64 batches of 32 queries; recall@10
    against brute force on the card; K1's launches must equal the scan
@@ -26,7 +33,8 @@ Phases, each of which raises on failure:
 6. kernel times at the main paths' shapes (CUDA events), printed as one
    JSON line with each kernel's launches (summed over every main-path run
    of phases 3-11), time, bound and plain time (K1 and B2 timed alone on a
-   prebuilt plan, beside their wrappers' times);
+   prebuilt plan, beside their wrappers' times; K23 on the 1M build's
+   largest step, beside the build's own per-step times);
 7. resident f32: ``serve_step`` over the phase-4 queries on the index held
    on the card, fused (B2) and legacy (B6a), then ``serve_leveled`` and the
    resident q8 tier (``attach_quantized``, K1); recall against the probe
@@ -82,6 +90,8 @@ ENGINE_PROBES = 256              # phase-11 queries checked against
                                  # run_sequential
 CLI_N = 100_000                  # phase 12's corpus size per index
 CLI_TIMEOUT_S = 600              # phase 12's subprocess
+MAX_PER_NODE_LAUNCHES = 200      # K2 or K3 launches a 1M build may make
+                                 # (the per-node splitter made 81,579)
 
 
 def log(*a) -> None:
@@ -499,6 +509,97 @@ def check_nan_kept(case: str, got, want) -> None:
     log(f"[kernels] {case}: ok, {int(torch.isnan(got).sum())} NaN kept")
 
 
+def k23_inputs(sizes, k, d, *, seed, device="cuda"):
+    """Sub-problems of the given sizes (k centroids each, capped at the
+    size) over rows of a Gaussian mixture scattered in random order, with
+    host int32 indices and initial rows drawn as the splitter draws them:
+    (x, pts, offs, k, init)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t_n = int(sum(sizes))
+    modes = rng.normal(size=(16, d)).astype(np.float32)
+    x = modes[rng.integers(0, 16, size=t_n)] \
+        + 0.25 * rng.normal(size=(t_n, d)).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    ks = np.minimum(k, np.asarray(sizes)).astype(np.int32)
+    init = np.zeros((len(sizes), 16), np.int32)
+    for i, (n, kk) in enumerate(zip(sizes, ks)):
+        init[i, :kk] = np.random.default_rng(seed + i).choice(n, kk,
+                                                              replace=False)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(rng.permutation(t_n).astype(np.int32)),
+            torch.from_numpy(offs), torch.from_numpy(ks),
+            torch.from_numpy(init))
+
+
+def per_node_lloyd(x, pts, offs, k, init, iters):
+    """The per-node loop K23 replaces: K2, a stable sort and K3 on each
+    sub-problem in turn, on the card."""
+    from repro_torch.kernels import kmeans_assign as am
+    from repro_torch.kernels import kmeans_mstep as mm
+    from repro_torch.kernels.kmeans_batched import lloyd
+
+    outs = []
+    for s in range(k.shape[0]):
+        lo, hi, ks = int(offs[s]), int(offs[s + 1]), int(k[s])
+        xs = x[pts[lo:hi].to(x.device).long()].contiguous()
+        c0 = xs[init[s, :ks].to(x.device).long()].contiguous()
+        outs.append(lloyd(xs, c0, iters, am.kmeans_assign_update_cuda,
+                          mm.kmeans_mstep_cuda))
+    return outs
+
+
+def check_k23(case: str, iters: int, x, pts, offs, k, init) -> float:
+    """K23 against its plain version (assignments >= 99% equal, centroids
+    within 1e-4: the tolerance of the CPU test of the k-means loop), bit
+    for bit against the per-node CUDA loop, and equal run to run."""
+    import torch
+
+    from repro_torch.kernels import kmeans_batched as kb
+
+    got = kb.kmeans_batched_cuda(x, pts, offs, k, init, iters)
+    again = kb.kmeans_batched_cuda(x, pts, offs, k, init, iters)
+    want = kb.kmeans_batched_plain(x, pts, offs, k, init, iters)
+    nodes = per_node_lloyd(x, pts, offs, k, init, iters)
+    torch.cuda.synchronize()
+    for u, v in zip(got, again):
+        if not torch.equal(u, v):
+            raise AssertionError(f"K23 {case}: not deterministic run to run")
+    a, md, cents, counts = got
+    for s, (c, pa, pmd, pcnt) in enumerate(nodes):
+        lo, hi, ks = int(offs[s]), int(offs[s + 1]), int(k[s])
+        if not (torch.equal(a[lo:hi], pa) and torch.equal(md[lo:hi], pmd)
+                and torch.equal(cents[s, :ks], c)
+                and torch.equal(counts[s, :ks], pcnt)):
+            raise AssertionError(f"K23 {case}: sub-problem {s} differs from "
+                                 f"the per-node K2 + sort + K3 loop")
+    agree = float((a == want[0]).float().mean())
+    if agree < 0.99:
+        raise AssertionError(f"K23 {case}: {agree:.4f} of the assignments "
+                             f"equal the plain version's")
+    torch.testing.assert_close(cents, want[2], rtol=1e-4, atol=1e-4)
+    err = float((cents - want[2]).abs().max())
+    log(f"[kernels] K23 {case}: ok, bit-equal to the per-node loop, "
+        f"assign agreement {agree:.5f} max_abs_err={err:.3g}")
+    return err
+
+
+def check_kmeans_nan(case: str, got, want) -> None:
+    """K2 or K23 on grid inputs with a NaN row and a NaN centroid: every
+    output equal to the plain version's, NaN for NaN."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not bool(torch.isnan(want[1]).any()):
+        raise AssertionError(f"{case}: the plain version lost the NaN")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    log(f"[kernels] {case}: ok, {int(torch.isnan(got[1]).sum())} NaN "
+        f"min distances kept, assignments equal")
+
+
 def k3_inputs(k, d, n_empty, *, seed, int_counts=False):
     import numpy as np
     import torch
@@ -528,7 +629,7 @@ def phase_kernels() -> dict:
     errs = {"ivf_scan_q8_topk": 0.0, "kmeans_assign_update": 0.0,
             "kmeans_mstep": 0.0, "ivf_scan_topk": 0.0, "ivf_scan": 0.0,
             "pairwise_l2": 0.0, "ivf_scan_clustermajor": 0.0,
-            "ivf_scan_q8": 0.0}
+            "ivf_scan_q8": 0.0, "kmeans_batched": 0.0}
 
     def k1(case, k2, *shape, **kw):
         e = check_k1(case, k2, *q8_inputs(*shape, **kw))
@@ -568,6 +669,42 @@ def phase_kernels() -> dict:
                                                    int_counts=True)),
                        ("ragged K65 D3", k3_inputs(65, 3, 20, seed=14))):
         check_k3(case, *args)
+
+    # K23: a 1M build's first step (100 chunks of 5000, k 8), later steps
+    # (many small nodes, k 2-8), a ragged D and the widest D
+    import numpy as np
+    rng = np.random.default_rng(30)
+    for case, iters, sizes, k, d in (
+            ("first step 100x5000 k8 D128", 8, [5000] * 100, 8, 128),
+            ("later step 160 nodes N100-1800 k2-8 D128", 8,
+             rng.integers(100, 1800, size=160).tolist(), 8, 128),
+            ("ragged D37 k16", 5, rng.integers(16, 700, size=40).tolist(),
+             16, 37),
+            ("D1024 k5", 3, rng.integers(5, 300, size=12).tolist(), 5,
+             1024)):
+        errs["kmeans_batched"] = max(errs["kmeans_batched"], check_k23(
+            case, iters, *k23_inputs(sizes, k, d, seed=len(sizes) + d)))
+
+    # K2 and K23 keep a NaN distance: a NaN row and a NaN centroid
+    from repro_torch.kernels import kmeans_batched as kb
+    xg = np.random.default_rng(31).integers(-4, 5, size=(300, 5))
+    xg = xg.astype(np.float32)
+    cg = xg[:7].copy()
+    xg[17, 2] = np.nan
+    cg[4, 1] = np.nan
+    xg_d, cg_d = torch.from_numpy(xg).cuda(), torch.from_numpy(cg).cuda()
+    check_kmeans_nan("K2 NaN row + NaN centroid",
+                     am.kmeans_assign_update_cuda(xg_d, cg_d),
+                     am.kmeans_assign_update_plain(xg_d, cg_d))
+    pts = torch.arange(300, dtype=torch.int32)
+    offs = torch.tensor([0, 100, 300], dtype=torch.int32)
+    ks = torch.tensor([7, 5], dtype=torch.int32)
+    init = torch.zeros((2, 16), dtype=torch.int32)
+    init[0, :7] = torch.tensor([3, 17, 40, 1, 9, 60, 2])   # row 17 is NaN
+    init[1, :5] = torch.tensor([0, 10, 20, 30, 40])
+    check_kmeans_nan("K23 NaN row + NaN centroid",
+                     kb.kmeans_batched_cuda(xg_d, pts, offs, ks, init, 1),
+                     kb.kmeans_batched_plain(xg_d, pts, offs, ks, init, 1))
 
     def b2(case, k2, *shape, **kw):
         e = check_b2(case, k2, *f32_inputs(*shape, **kw))
@@ -662,13 +799,141 @@ def phase_build(work: str) -> dict:
         + " ".join(f"{k}={v:.1f}s" for k, v in report.stage_seconds.items())
         + f" n_clusters={report.n_clusters} "
           f"replication={report.replication:.4f} launches={launches}")
-    for name in ("kmeans_assign_update", "kmeans_mstep"):
+    split = split_summary(report.stage1_split)
+    log(f"[build] stage 1 lockstep: {split}")
+    # the splitter and enforce_size_bound's 2-means run on K23; K2 is left
+    # with enforce_size_bound's reassignments, K3 with nothing
+    for name in ("kmeans_batched", "kmeans_assign_update"):
         if launches[name] < 1:
             raise AssertionError(f"build never launched {name}")
+    log(f"[build] launches: K23 {launches['kmeans_batched']} K2 "
+        f"{launches['kmeans_assign_update']} K3 {launches['kmeans_mstep']}")
+    for name in ("kmeans_assign_update", "kmeans_mstep"):
+        if launches[name] > MAX_PER_NODE_LAUNCHES:
+            raise AssertionError(f"build launched {name} "
+                                 f"{launches[name]} times: per-node k-means "
+                                 f"is back on the build's path")
     if llsp is None:
         raise AssertionError("build trained no LLSP models")
+    compare_per_node(x, cfg, np.load(os.path.join(work, "build",
+                                                  "stage1_centroids.npy")),
+                     20)
     return {"x": x, "spec": spec, "index": index, "llsp": llsp,
-            "report": report, "build_s": build_s, "launches": launches}
+            "report": report, "build_s": build_s, "launches": launches,
+            "cfg": cfg, "split": split}
+
+
+def split_summary(stats: list) -> dict:
+    """Stage 1's lockstep groups summed: steps, sub-problems, K23 device ms
+    (CUDA events, total, mean and largest per step), host seconds of
+    bookkeeping and of waiting on the card, and each group's wall seconds
+    (the groups run side by side; the rest of stage 1 is the merge and
+    ``enforce_size_bound``)."""
+    ms = [m for s in stats for m in s.kernel_ms]
+    steps = sum(s.steps for s in stats)
+    return {"groups": len(stats), "steps": steps,
+            "steps_per_group": [s.steps for s in stats],
+            "subproblems": sum(s.subproblems for s in stats),
+            "k23_ms_total": sum(ms), "k23_ms_mean": sum(ms) / max(len(ms), 1),
+            "k23_ms_max": max(ms, default=0.0),
+            "host_bookkeeping_s": sum(s.host_s for s in stats),
+            "host_wait_s": sum(s.wait_s for s in stats),
+            "group_wall_s": [s.wall_s for s in stats]}
+
+
+def per_cell_size_bound(x, cents, bound: int, seed: int):
+    """``enforce_size_bound`` with one fused ``kmeans`` (K2, sort, K3) per
+    oversized cell, on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.build.kmeans import kmeans
+    from repro_torch.kernels import ops
+
+    xd = torch.from_numpy(x).to(DEVICE)
+    cents = cents.copy()
+    for rnd in range(20):
+        a, _, _, cnt = ops.kmeans_assign_update(
+            xd, torch.from_numpy(cents).to(DEVICE))
+        a, cnt = a.cpu().numpy(), cnt.cpu().numpy()
+        over = np.nonzero(cnt > bound)[0]
+        if over.size == 0:
+            break
+        order = np.argsort(a, kind="stable")
+        starts = np.concatenate([[0], np.cumsum(cnt)])
+        new_rows = []
+        for c in over:
+            sub, _, _ = kmeans(x[order[starts[c]:starts[c + 1]]], 2, iters=4,
+                               seed=seed + 131 * rnd + int(c), device=DEVICE)
+            cents[c] = sub[0]
+            new_rows.append(sub[1])
+        cents = np.concatenate([cents, np.stack(new_rows)], axis=0)
+    return cents
+
+
+def compare_per_node(x, cfg, stage1, n_chunks: int) -> None:
+    """Stage 1 run per node on the card (K2 + sort + K3 per splitter node
+    and per oversized cell) must give the lockstep build's
+    stage-1 centroids bit for bit; stages 2 and 3 are deterministic, so the
+    index hashes the same.  On the first chunks the lockstep splitter is
+    timed beside the per-node one, and the per-node plain path on this
+    machine's host CPU as a yardstick."""
+    import numpy as np
+    import torch
+
+    from repro_torch.build.kmeans import balanced_hierarchical_kmeans, \
+        balanced_hierarchical_kmeans_many
+
+    per = cfg.coarse_per_task
+    n_all = -(-len(x) // per)
+    chunks = [x[i * per:(i + 1) * per] for i in range(n_all)]
+    seeds = [cfg.seed + 1000 * i for i in range(n_all)]
+    kw = dict(iters=cfg.kmeans_iters)
+    t0 = time.perf_counter()
+    node = [balanced_hierarchical_kmeans(c, cfg.max_cluster_size, seed=s,
+                                         device=DEVICE, **kw)
+            for c, s in zip(chunks, seeds)]
+    torch.cuda.synchronize()
+    t_node_all = time.perf_counter() - t0
+    n_chunks = min(n_chunks, n_all)
+    t0 = time.perf_counter()
+    for c, s in zip(chunks[:n_chunks], seeds[:n_chunks]):
+        balanced_hierarchical_kmeans(c, cfg.max_cluster_size, seed=s,
+                                     device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    t_node = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    many = balanced_hierarchical_kmeans_many(
+        chunks[:n_chunks], seeds[:n_chunks], cfg.max_cluster_size,
+        device=DEVICE, **kw)
+    t_many = time.perf_counter() - t0
+    for i, ((mc, ma), (nc, na)) in enumerate(zip(many, node)):
+        if not (np.array_equal(mc, nc) and np.array_equal(ma, na)):
+            raise AssertionError(f"chunk {i}: the lockstep splitter differs "
+                                 f"from the per-node splitter on the card")
+    t0 = time.perf_counter()
+    for c, s in zip(chunks[:n_chunks], seeds[:n_chunks]):
+        balanced_hierarchical_kmeans(c, cfg.max_cluster_size, seed=s,
+                                     device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    log(f"[build] first {n_chunks} chunks: lockstep K23 {t_many:.3f} s, "
+        f"per-node K2+K3 on the card {t_node:.3f} s, bit-equal "
+        f"({sum(len(c) for c, _ in many)} leaf centroids); per-node plain "
+        f"path on the host CPU {t_cpu:.3f} s (host CPU, "
+        f"{torch.get_num_threads()} torch threads)")
+    t0 = time.perf_counter()
+    want = per_cell_size_bound(
+        x, np.concatenate([c for c, _ in node]).astype(np.float32),
+        min(cfg.max_cluster_size, cfg.cluster_len), cfg.seed)
+    t_bound = time.perf_counter() - t0
+    if not np.array_equal(want, stage1):
+        raise AssertionError("stage 1 per node on the card differs from the "
+                             "lockstep build's stage-1 centroids")
+    log(f"[build] stage 1 per node on the card (one worker): splitter "
+        f"{t_node_all:.3f} s over {n_all} chunks, per-cell size bound "
+        f"{t_bound:.3f} s; {want.shape[0]} centroids bit-equal to the "
+        f"lockstep build's stage 1, so the index hash is the per-node "
+        f"path's")
 
 
 # --------------------------------------------------------------------------
@@ -1128,8 +1393,11 @@ def phase_unfused(work: str) -> dict:
     unf = builds[False]
     if unf["launches"]["pairwise_l2"] < 1:
         raise AssertionError("the unfused build never launched pairwise_l2")
-    if unf["launches"]["kmeans_assign_update"] != 0:
-        raise AssertionError("the unfused build launched the fused K2")
+    for name in ("kmeans_assign_update", "kmeans_batched"):
+        if unf["launches"][name] != 0:
+            raise AssertionError(f"the unfused build launched {name}")
+    if builds[True]["launches"]["kmeans_batched"] < 1:
+        raise AssertionError("the fused build never launched K23")
     queries, _ = make_queries(spec, PARITY_BATCHES * BATCH, seed=7)
     batches = [(queries[i:i + BATCH], np.full(BATCH, 10, np.int32))
                for i in range(0, len(queries), BATCH)]
@@ -1536,6 +1804,10 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     plain = time_ms(lambda: am.kmeans_assign_update_plain(x, cents), n=3,
                     warm=1)
     nbytes = (n * d + k * d) * 4 + n * 8 + (k * d + k) * 4
+    xs, cs = kmeans_inputs(5000, 8, 128, seed=21)
+    small = time_ms(lambda: am.kmeans_assign_update_cuda(xs, cs), n=50)
+    log(f"[times] K2 at the splitter's shape before K23, N=5000 K=8 "
+        f"D=128: {small:.4f} ms")
     rows.append(_row("kmeans_assign_update",
                      "src/repro_torch/csrc/kmeans_assign.cu",
                      "src/repro/kernels/kmeans_assign.py:108",
@@ -1543,12 +1815,9 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
                      2 * n * k * d,
                      "no single PyTorch call fuses the argmin with the "
                      "per-cluster sums and counts",
-                     f"N={n} K={k} D={d} (enforce_size_bound)"))
-    xs, cs = kmeans_inputs(5000, 8, 128, seed=21)
-    small = time_ms(lambda: am.kmeans_assign_update_cuda(xs, cs), n=50)
-    log(f"[times] K2 at the splitter's shape N=5000 K=8 D=128: "
-        f"{small:.4f} ms")
-    # K3: the splitter's M-step, K = 8 centroids of D = 128
+                     f"N={n} K={k} D={d} (enforce_size_bound)",
+                     splitter_shape_ms=small))
+    # K3: the splitter's M-step before K23, K = 8 centroids of D = 128
     sums, counts, reseed = k3_inputs(8, 128, 2, seed=22)
     ms = time_ms(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed), n=200)
     plain = time_ms(lambda: mm.kmeans_mstep_plain(sums, counts, reseed),
@@ -1560,7 +1829,8 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
                      kernel_errs["kmeans_mstep"], ms, plain, nbytes, 8 * 128,
                      "no single PyTorch call divides by the counts and "
                      "reseeds the empty clusters by rank",
-                     "K=8 D=128 (hierarchical splitter)"))
+                     "K=8 D=128 (the splitter's shape before K23)"))
+    rows.append(k23_row(built, kernel_errs))
     rows.append(b2_row(streamed, resident, kernel_errs))
     rows.append(b6a_row(resident, kernel_errs))
     rows.append(b5_row(built, kernel_errs))
@@ -1568,14 +1838,71 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     rows.append(b7_row(resident, kernel_errs))
     for r in rows:
         if r["name"] in NO_PATH:
-            # the reference runs these through kernels.ops only, and so
-            # does the port: a launch on a main path would be news
+            # a launch on a main path would be news
             if r["launches"]:
                 raise AssertionError(f"{r['name']} launched on a main path: "
                                      f"{r['launches_by_path']}")
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} launched on no main path")
     return rows
+
+
+def k23_row(built: dict, kernel_errs: dict) -> dict:
+    """K23 on the 1M build's largest step: the first step of stage 1's
+    first group (its chunks' roots, 5000 points and k 8 each), timed alone
+    with CUDA events around the launch; and the build's own steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import kmeans_batched as kb
+
+    cfg = built["cfg"]
+    per = cfg.coarse_per_task
+    n_chunks = -(-len(built["x"]) // per)
+    first = int(np.linspace(0, n_chunks, max(1, min(cfg.n_workers,
+                                                    n_chunks)) + 1)[1])
+    x = torch.from_numpy(built["x"][:first * per]).cuda()
+    t_n, d = x.shape
+    pts = torch.arange(t_n, dtype=torch.int32)
+    offs = torch.arange(0, t_n + 1, per, dtype=torch.int32)
+    k = min(8, -(-per // cfg.max_cluster_size))
+    ks = torch.full((first,), k, dtype=torch.int32)
+    init = torch.zeros((first, 16), dtype=torch.int32)
+    for i in range(first):
+        init[i, :k] = torch.from_numpy(np.random.default_rng(
+            cfg.seed + 1000 * i + 1).choice(per, k, replace=False))
+    it = cfg.kmeans_iters
+
+    def run():
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        kb.kmeans_batched_cuda(x, pts, offs, ks, init, it, events=ev)
+        return ev
+
+    run()
+    evs = [run() for _ in range(5)]
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in evs) / len(evs)
+    wrapper = time_ms(lambda: kb.kmeans_batched_cuda(x, pts, offs, ks, init,
+                                                     it), n=5, warm=1)
+    plain = time_ms(lambda: kb.kmeans_batched_plain(x, pts, offs, ks, init,
+                                                    it), n=1, warm=1)
+    nbytes = t_n * d * 4 + t_n * 4 + (2 * first + 1) * 4 + first * 64 \
+        + t_n * 8 + first * 16 * (d * 4 + 4)
+    split = built["split"]
+    return _row("kmeans_batched", "src/repro_torch/csrc/kmeans_batched.cu",
+                "src/repro/kernels/kmeans_assign.py:108 + "
+                "src/repro/kernels/kmeans_mstep.py:90 (splitter shapes)",
+                kernel_errs["kmeans_batched"], ms, plain, nbytes,
+                2 * t_n * k * d * it,
+                "no single PyTorch call runs Lloyd iterations over many "
+                "sub-problems",
+                f"first step of group 0: S={first} N={per} each, k={k}, "
+                f"D={d}, iters={it}", wrapper_ms=wrapper,
+                build_steps=split["steps"],
+                build_ms_per_step=split["k23_ms_mean"],
+                build_ms_total=split["k23_ms_total"],
+                host_bookkeeping_s=split["host_bookkeeping_s"])
 
 
 def b2_work(tile_cids, qsel, l, d, b, k2):
@@ -1668,9 +1995,10 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
                 f"unique_clusters={uniq} L={l} D={d}")
 
 
-# kernels that no main path runs, in the reference as in the port: their
-# rows must count no launch
-NO_PATH = ("ivf_scan_clustermajor", "ivf_scan_q8")
+# kernels that no main path of the port runs, so their rows must count no
+# launch: B6b and B7 (as in the reference) and K3, whose calls in the
+# splitter and in enforce_size_bound's 2-means went to K23
+NO_PATH = ("ivf_scan_clustermajor", "ivf_scan_q8", "kmeans_mstep")
 
 
 def b6b_row(resident: dict, kernel_errs: dict) -> dict:

@@ -15,15 +15,26 @@ float64 scatter-add, the reseed a stable host argsort; centroids live on
 the host between iterations.
 
 ``balanced_hierarchical_kmeans`` is the SPANN-style recursive splitter that
-bounds every leaf at ``max_cluster_size``.
+bounds every leaf at ``max_cluster_size``, one ``kmeans`` call per internal
+node.  ``balanced_hierarchical_kmeans_many`` runs many such splitters (one
+per chunk) in lockstep: each step pops every chunk's next node in that
+chunk's own DFS order and runs all the popped nodes' Lloyd loops in one
+``ops.kmeans_batched`` launch (K23), so it returns, chunk by chunk, exactly
+what the per-node splitter returns.  ``enforce_size_bound``'s fused rounds
+run their 2-means the same way, one K23 launch a round.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.kmeans_batched import MAX_K, lloyd
 
 
 def kmeans_assign_step(xd: torch.Tensor, cents: np.ndarray,
@@ -65,11 +76,8 @@ def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
                 cents[~nonz] = x[far]
         return cents, assign.astype(np.int32), float(mind.sum())
     cd = torch.from_numpy(np.ascontiguousarray(cents)).to(dev)
-    a = md = None
-    for _ in range(max(1, iters)):
-        a, md, sums, counts = kops.kmeans_assign_update(xd, cd)
-        worst = torch.sort(md, descending=True, stable=True).indices[:k]
-        cd = kops.kmeans_mstep(sums, counts, xd[worst])
+    cd, a, md, _ = lloyd(xd, cd, iters, kops.kmeans_assign_update,
+                         kops.kmeans_mstep)
     return (cd.cpu().numpy(), a.cpu().numpy().astype(np.int32),
             float(md.cpu().numpy().sum()))
 
@@ -101,28 +109,157 @@ def balanced_hierarchical_kmeans(
         if idxs.size <= max_cluster_size:
             leaves.append(idxs)
             continue
-        k = int(min(branch, max(2, -(-idxs.size // max_cluster_size))))
+        k = _split_k(idxs.size, max_cluster_size, branch)
         task_seed += 1
         _, a, _ = kmeans(x[idxs], k, iters=iters, seed=task_seed, fused=fused,
                          device=dev)
-        sizes = np.bincount(a, minlength=k)
-        if (sizes == idxs.size).any():  # degenerate: force a median split
-            dim = int(np.argmax(x[idxs].var(axis=0)))
-            order = idxs[np.argsort(x[idxs][:, dim], kind="stable")]
-            half = idxs.size // 2
-            stack.append(order[:half])
-            stack.append(order[half:])
-            continue
-        for j in range(k):
-            sub = idxs[a == j]
-            if sub.size:
-                stack.append(sub)
+        stack.extend(_children(x, idxs, a, k))
+    return _leaf_means(x, leaves)
+
+
+def _split_k(size: int, max_cluster_size: int, branch: int) -> int:
+    return int(min(branch, max(2, -(-size // max_cluster_size))))
+
+
+def _children(x: np.ndarray, idxs: np.ndarray, a: np.ndarray,
+              k: int) -> list:
+    """The nodes a split of ``idxs`` pushes, in push order: when k-means
+    put every point in one cluster, a median split along the axis of
+    highest variance (so the recursion ends); else each non-empty cluster's
+    points, ``idxs[a == j]`` in index order, for j = 0 .. k-1."""
+    sizes = np.bincount(a, minlength=k)
+    if (sizes == idxs.size).any():
+        xi = x[idxs]
+        dim = int(np.argmax(xi.var(axis=0)))
+        order = idxs[np.argsort(xi[:, dim], kind="stable")]
+        half = idxs.size // 2
+        return [order[:half], order[half:]]
+    members = idxs[np.argsort(a, kind="stable")]
+    ends = np.cumsum(sizes)
+    return [members[e - m:e] for m, e in zip(sizes, ends) if m]
+
+
+def _leaf_means(x: np.ndarray, leaves: list) -> tuple[np.ndarray, np.ndarray]:
     leaves.sort(key=lambda l: int(l[0]))  # deterministic leaf order
     cents = np.stack([x[l].mean(axis=0) for l in leaves]).astype(np.float32)
-    assign = np.empty(n, np.int32)
+    assign = np.empty(x.shape[0], np.int32)
     for ci, l in enumerate(leaves):
         assign[l] = ci
     return cents, assign
+
+
+def _lloyd_many(xd: torch.Tensor, groups: list, ks: list, seeds: list,
+                iters: int, events=None):
+    """``kmeans(x[g], k, iters, seed)`` (fused) for every (g, k, seed) in
+    one ``ops.kmeans_batched`` launch (K23): sub-problem i is the rows
+    ``groups[i]`` of ``xd`` in that order, started from the rows
+    ``kmeans`` draws from ``seeds[i]``.  Returns K23's (assign, min_dist,
+    cents (S, 16, D), counts)."""
+    offs = np.zeros(len(groups) + 1, np.int32)
+    offs[1:] = np.cumsum([g.size for g in groups])
+    init = np.zeros((len(groups), MAX_K), np.int32)
+    for r, (g, k, sd) in enumerate(zip(groups, ks, seeds)):
+        rng = np.random.default_rng(sd)
+        init[r, :k] = rng.choice(g.size, size=k, replace=False)
+    return kops.kmeans_batched(
+        xd, torch.from_numpy(np.concatenate(groups).astype(np.int32)),
+        torch.from_numpy(offs), torch.from_numpy(np.asarray(ks, np.int32)),
+        torch.from_numpy(init), iters, events=events)
+
+
+@dataclasses.dataclass
+class SplitStats:
+    """What one lockstep run of ``balanced_hierarchical_kmeans_many`` did:
+    its steps (one K23 launch each) and the sub-problems they held; host
+    seconds spent on bookkeeping (popping nodes, splitting them) and in the
+    K23 call (seed draws, index arrays and their checks, upload, launch,
+    until the assignments are back on the host), and the whole call's
+    seconds (with the corpus upload and the leaf means); on a card, K23's
+    device ms per step (CUDA events around the launch)."""
+    steps: int = 0
+    subproblems: int = 0
+    host_s: float = 0.0
+    wait_s: float = 0.0
+    wall_s: float = 0.0
+    kernel_ms: list = dataclasses.field(default_factory=list)
+
+
+def balanced_hierarchical_kmeans_many(
+    chunks: list,
+    seeds: list,
+    max_cluster_size: int,
+    iters: int = 8,
+    branch: int = 8,
+    *,
+    device: DeviceLike = None,
+    stats: SplitStats | None = None,
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """``balanced_hierarchical_kmeans(chunks[i], seed=seeds[i], ...)`` (fused)
+    for every chunk, bit for bit, with one K23 launch per lockstep step.
+
+    A node's seed is its chunk's seed plus the number of internal nodes the
+    chunk popped up to it, so a chunk's nodes run one after another; the
+    chunks are independent, so each step takes one node from every chunk
+    that has one left.  ``stats``, when given, is filled in."""
+    dev = resolve_device(device)
+    xs = [np.asarray(c, np.float32) for c in chunks]
+    if len(seeds) != len(xs):
+        raise ValueError(f"{len(xs)} chunks but {len(seeds)} seeds")
+    if not xs:
+        return []
+    st = stats if stats is not None else SplitStats()
+    t_call = time.perf_counter()
+    base = np.cumsum([0] + [c.shape[0] for c in xs])
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    ctx = (torch.cuda.stream(stream) if stream is not None
+           else contextlib.nullcontext())
+    with ctx:
+        xd = torch.from_numpy(np.concatenate(xs)).to(dev)
+        stacks = [[np.arange(c.shape[0])] for c in xs]
+        leaves: list[list] = [[] for _ in xs]
+        task_seed = [int(s) for s in seeds]
+        while True:
+            t0 = time.perf_counter()
+            nodes = []                            # (chunk, idxs, k, seed)
+            for i, stack in enumerate(stacks):
+                while stack:
+                    idxs = stack.pop()
+                    if idxs.size <= max_cluster_size:
+                        leaves[i].append(idxs)
+                        continue
+                    task_seed[i] += 1
+                    nodes.append((i, idxs, _split_k(idxs.size,
+                                                    max_cluster_size, branch),
+                                  task_seed[i]))
+                    break
+            if not nodes:
+                st.host_s += time.perf_counter() - t0
+                break
+            events = None
+            if stream is not None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            t1 = time.perf_counter()
+            a = _lloyd_many(xd, [base[i] + idxs for i, idxs, _, _ in nodes],
+                            [k for _, _, k, _ in nodes],
+                            [sd for _, _, _, sd in nodes], iters,
+                            events=events)[0]
+            a = a.cpu().numpy()
+            t2 = time.perf_counter()
+            if events is not None:
+                st.kernel_ms.append(events[0].elapsed_time(events[1]))
+            at = 0
+            for i, idxs, k, _ in nodes:
+                stacks[i].extend(_children(xs[i], idxs,
+                                           a[at:at + idxs.size], k))
+                at += idxs.size
+            st.steps += 1
+            st.subproblems += len(nodes)
+            st.wait_s += t2 - t1
+            st.host_s += (t1 - t0) + (time.perf_counter() - t2)
+    out = [_leaf_means(x, lv) for x, lv in zip(xs, leaves)]
+    st.wall_s += time.perf_counter() - t_call
+    return out
 
 
 def enforce_size_bound(
@@ -139,8 +276,10 @@ def enforce_size_bound(
 
     Each round reassigns all points (fused: the kernel's counts are the
     cell sizes; unfused: ``ops.kmeans_assign`` and a host bincount) and
-    2-way-splits every oversized cell; a cell's points are taken in index
-    order, as the reference's ``x[a == c]``.
+    2-way-splits every oversized cell with ``kmeans(cell, 2, iters=4)``; a
+    cell's points are taken in index order, as the reference's
+    ``x[a == c]``.  Fused, a round's 2-means (independent, with fixed
+    seeds) run together in one K23 launch.
     """
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
@@ -161,11 +300,17 @@ def enforce_size_bound(
             break
         order = np.argsort(a, kind="stable")          # index order per cell
         starts = np.concatenate([[0], np.cumsum(counts)])
+        cells = [order[starts[c]:starts[c + 1]] for c in over]
+        seeds = [seed + 131 * rnd + int(c) for c in over]
+        if fused:
+            ks = [min(2, g.size) for g in cells]     # kmeans()'s clamp
+            out = _lloyd_many(xd, cells, ks, seeds, 4)[2].cpu().numpy()
+            subs = [out[i, :k] for i, k in enumerate(ks)]
+        else:
+            subs = [kmeans(x[g], 2, iters=4, seed=sd, fused=False,
+                           device=dev)[0] for g, sd in zip(cells, seeds)]
         new_rows = []
-        for c in over:
-            pts = x[order[starts[c]:starts[c + 1]]]
-            sub, _, _ = kmeans(pts, 2, iters=4, seed=seed + 131 * rnd + int(c),
-                               fused=fused, device=dev)
+        for c, sub in zip(over, subs):
             cents[c] = sub[0]
             if sub.shape[0] > 1:
                 new_rows.append(sub[1])

@@ -2,10 +2,13 @@
 ``repro.build.pipeline``).
 
 Stage 1 — coarse clustering: the corpus is split into ``coarse_per_task``
-chunks; each task runs balanced hierarchical k-means (every Lloyd step on
-the fused K2/K3 kernels, or with ``fused_assign=False`` on the unfused
-``pairwise_l2`` path) and the merged centroid set is split until every
-Voronoi cell fits a posting list.  Stage 2 — closure multi-cluster
+chunks, each clustered by balanced hierarchical k-means.  Fused, the chunks
+go in ``n_workers`` contiguous groups, one task each, whose splitters run in
+lockstep (``balanced_hierarchical_kmeans_many``: one batched Lloyd launch,
+K23, per step); with ``fused_assign=False`` each chunk is a task on the
+unfused ``pairwise_l2`` path.  The merged centroid set is then split until
+every Voronoi cell fits a posting list (fused: K2 reassignments, each
+round's 2-means in one K23 launch).  Stage 2 — closure multi-cluster
 assignment per shard (elastic tasks, shard-granular checkpoints), then the
 fixed-size posting build.  Stage 3 — LLSP training from logged queries.
 
@@ -33,7 +36,8 @@ from repro_torch.core.spann_rules import closure_assign
 from repro_torch.device import DeviceLike, resolve_device
 
 from .elastic import run_tasks
-from .kmeans import balanced_hierarchical_kmeans, enforce_size_bound
+from .kmeans import SplitStats, balanced_hierarchical_kmeans, \
+    balanced_hierarchical_kmeans_many, enforce_size_bound
 
 
 @dataclasses.dataclass
@@ -58,6 +62,8 @@ class BuildReport:
     replication: float            # mean posting slots per corpus vector
     stage_seconds: dict
     resumed_stages: list
+    stage1_split: list = dataclasses.field(default_factory=list)
+                                  # SplitStats per fused stage-1 group
 
 
 def _chunks(n: int, per_task: int) -> list[tuple[int, int]]:
@@ -96,6 +102,7 @@ def build_index(
     spans = _chunks(n, cfg.coarse_per_task)
     stage_seconds: dict = {}
     resumed: list = []
+    split_stats: list = []
 
     # ---- stage 1: coarse clustering (elastic tasks, per-chunk) -----------
     t0 = time.perf_counter()
@@ -104,18 +111,37 @@ def build_index(
         centroids = np.load(c_path)
         resumed.append("stage1")
     else:
+        def mk_group(group):
+            def task():
+                st = SplitStats()
+                res = balanced_hierarchical_kmeans_many(
+                    [x[lo:hi] for _, (lo, hi) in group],
+                    [cfg.seed + 1000 * i for i, _ in group],
+                    cfg.max_cluster_size, iters=cfg.kmeans_iters, device=dev,
+                    stats=st)
+                return [c for c, _ in res], st
+            return task
+
         def mk_stage1(i, lo, hi):
             def task():
                 cents, _ = balanced_hierarchical_kmeans(
                     x[lo:hi], cfg.max_cluster_size, iters=cfg.kmeans_iters,
-                    seed=cfg.seed + 1000 * i, fused=cfg.fused_assign,
-                    device=dev)
+                    seed=cfg.seed + 1000 * i, fused=False, device=dev)
                 return cents
             return task
 
-        outs = run_tasks([mk_stage1(i, lo, hi)
-                          for i, (lo, hi) in enumerate(spans)],
-                         n_workers=cfg.n_workers)
+        chunks = list(enumerate(spans))
+        if cfg.fused_assign:
+            n_groups = max(1, min(cfg.n_workers, len(chunks)))
+            bounds = np.linspace(0, len(chunks), n_groups + 1).astype(int)
+            groups = [chunks[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+            done = run_tasks([mk_group(g) for g in groups],
+                             n_workers=cfg.n_workers)
+            outs = [c for cents, _ in done for c in cents]
+            split_stats = [st for _, st in done]
+        else:
+            outs = run_tasks([mk_stage1(i, lo, hi) for i, (lo, hi) in chunks],
+                             n_workers=cfg.n_workers)
         centroids = np.concatenate(outs, axis=0).astype(np.float32)
         centroids = enforce_size_bound(
             x, centroids, min(cfg.max_cluster_size, cfg.cluster_len),
@@ -169,7 +195,8 @@ def build_index(
 
     replication = float((posting_ids >= 0).sum()) / max(n, 1)
     report = BuildReport(n_clusters=n_clusters, replication=replication,
-                         stage_seconds=stage_seconds, resumed_stages=resumed)
+                         stage_seconds=stage_seconds, resumed_stages=resumed,
+                         stage1_split=split_stats)
     return index, llsp, report
 
 

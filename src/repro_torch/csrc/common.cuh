@@ -1,5 +1,6 @@
-// Helpers shared by the port's CUDA sources: launch checking and a
-// single-block exclusive scan (used for CSR offsets and empty-cluster ranks).
+// Helpers shared by the port's CUDA sources: launch checking, the k-means
+// argmin order and a single-block exclusive scan (used for CSR offsets and
+// empty-cluster ranks).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,6 +16,27 @@
 namespace repro {
 
 constexpr int kScanThreads = 1024;
+
+// The order of jnp.argmin / torch.argmin over (distance, index) pairs: a NaN
+// comes before every number (the first NaN wins), then the smaller distance,
+// then the lower index.  A total order, so a reduction over it gives the same
+// winner in any combination order.
+__device__ __forceinline__ bool argmin_before(float d1, int j1, float d2,
+                                              int j2) {
+  const bool n1 = isnan(d1), n2 = isnan(d2);
+  if (n1 != n2) return n1;
+  if (!n1 && d1 != d2) return d1 < d2;
+  return j1 < j2;
+}
+
+// The k-means distance epilogue ||x||^2 - 2 x.c + ||c||^2 with explicit
+// roundings, so that no compiler contraction can make two kernels differ,
+// clamped at 0 in a way that keeps a NaN (as jnp.maximum does; fmaxf would
+// turn it into 0).
+__device__ __forceinline__ float kmeans_dist(float xn, float dot, float cn) {
+  const float d = __fadd_rn(__fmaf_rn(-2.0f, dot, xn), cn);
+  return d < 0.0f ? 0.0f : d;
+}
 
 // Exclusive scan of value(i) for i in [0, n) into out[0..n]; out[n] is the
 // total.  Launch with ONE block of kScanThreads threads.  Thread t owns a

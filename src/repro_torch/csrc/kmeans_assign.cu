@@ -6,11 +6,14 @@
 // min_dist (N,), per-centroid sums (K, D) and counts (K,).
 //
 // What bounds it on an H100: the distance tile is 2*N*K*D FMAs in fp32; at
-// the largest call of the build (N = 1M points against K ~ 1.4e4 centroids
-// in enforce_size_bound) that is ~3.7 TFLOP against 67 TFLOP/s of fp32 CUDA
+// the largest call of the build (N = 1M points against K ~ 2e4 centroids
+// in enforce_size_bound) that is ~5 TFLOP against 67 TFLOP/s of fp32 CUDA
 // cores, while the bytes are only (N + K) * D * 4.  So it is bound by
-// operations.  The many small calls of the hierarchical splitter (a few
-// thousand points, K <= 8) are bound by launch latency instead.
+// operations.  The hierarchical splitter's many small calls go to the
+// batched kernel K23 (kmeans_batched.cu) instead, which repeats this
+// kernel's arithmetic bit for bit: row norms (one warp per row, lane-strided
+// fmaf, xor tree), the dot as sequential fmaf over d, repro::kmeans_dist and
+// repro::argmin_before (a NaN distance wins, the first NaN first).
 //
 // What the design does about it: the E-step is a tiled fp32 product
 // (64 x 64 output tile per block, D staged through shared memory in chunks
@@ -99,7 +102,8 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
       __syncthreads();
     }
 
-    // columns visited in increasing index: strict < keeps the first minimum
+    // columns visited in increasing index: the first NaN, else the first
+    // minimum (strict <), as torch.argmin
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gj = n0 + tx * TN + j;
@@ -107,8 +111,8 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
         const float cn = c2[gj];
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          const float d = fmaxf(xn[i] - 2.0f * acc[i][j] + cn, 0.0f);
-          if (d < best_d[i]) {
+          const float d = repro::kmeans_dist(xn[i], acc[i][j], cn);
+          if (isnan(d) ? !isnan(best_d[i]) : d < best_d[i]) {
             best_d[i] = d;
             best_j[i] = gj;
           }
@@ -117,7 +121,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
     }
   }
 
-  // combine the 16 threads of a row group: smaller distance, then lower index
+  // combine the 16 threads of a row group in repro::argmin_before's order
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     float d = best_d[i];
@@ -125,7 +129,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
     for (int off = 8; off > 0; off >>= 1) {
       const float od = __shfl_xor_sync(kFull, d, off);
       const int oj = __shfl_xor_sync(kFull, j, off);
-      if (od < d || (od == d && oj < j)) {
+      if (repro::argmin_before(od, oj, d, j)) {
         d = od;
         j = oj;
       }

@@ -13,6 +13,7 @@ import torch
 from . import ivf_scan as _ivf
 from . import ivf_scan_q8 as _q8
 from . import kmeans_assign as _assign
+from . import kmeans_batched as _batched
 from . import kmeans_mstep as _mstep
 from . import pairwise_l2 as _pw
 
@@ -35,6 +36,19 @@ def kmeans_mstep(sums: torch.Tensor, counts: torch.Tensor,
     if _on_cpu(sums):
         return _mstep.kmeans_mstep_plain(sums, counts, reseed)
     return _mstep.kmeans_mstep_cuda(sums, counts, reseed)
+
+
+def kmeans_batched(x: torch.Tensor, pts: torch.Tensor, offs: torch.Tensor,
+                   k: torch.Tensor, init: torch.Tensor, iters: int, *,
+                   events=None):
+    """Batched Lloyd k-means over the sub-problems x[pts[offs[s]:offs[s+1]]]
+    (host int32 pts, offs, k, init): (assign (T,) i32, min_dist (T,) f32,
+    cents (S, 16, D) f32, counts (S, 16) i32).  ``events``, a pair of CUDA
+    events, brackets the kernel's launch (the plain version ignores it)."""
+    if _on_cpu(x):
+        return _batched.kmeans_batched_plain(x, pts, offs, k, init, iters)
+    return _batched.kmeans_batched_cuda(x, pts, offs, k, init, iters,
+                                        events=events)
 
 
 def pairwise_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,8 @@
 thread limits, the card fixture, and the candidate comparison rule.
 
 Usage in test modules:  ``from _torch_port import cuda, torch_threads``.
+Also the inputs shared by the CPU and card tests (``q8_case``, ``f32_case``,
+``grid_points``, ``kmeans_batched_case``) and ``per_cell_size_bound``.
 Nothing here imports JAX: the card-only tests run where JAX is absent.
 """
 import numpy as np
@@ -105,3 +107,81 @@ def grid_points(n, k, d, seed):
     c = rng.integers(-4, 5, size=(k, d)).astype(np.float32)
     c[k // 2] = c[0]
     return x, c
+
+
+def kmeans_data(kind: str, n: int, d: int, rng) -> np.ndarray:
+    """(n, d) f32: small integers ("grid": every distance and sum exact,
+    ties common) or standard normals."""
+    if kind == "grid":
+        return rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    return rng.normal(size=(n, d)).astype(np.float32)
+
+
+def _dup_seed(x: np.ndarray, k: int) -> int:
+    """The first seed whose initial centroids (the reference's draw) hold
+    two equal rows: the later one gets no point at the first E-step (ties
+    go to the lower index), so that cluster is reseeded."""
+    for seed in range(1000):
+        init = x[np.random.default_rng(seed).choice(len(x), k, replace=False)]
+        if len(np.unique(init, axis=0)) < k:
+            return seed
+    raise AssertionError("no seed draws a repeated row")
+
+
+def kmeans_batched_case(kind: str, d: int = 6, seed: int = 0):
+    """Sub-problems of several sizes (k = 1 and k = 16 among them, one with
+    a reseeded empty cluster), their rows scattered over one x in a random
+    order: (x, pts, offs, k, init, [(rows, k, seed)])."""
+    rng = np.random.default_rng(seed)
+    subs = []
+    for n, k in ((50, 1), (300, 16), (200, 8), (97, 3), (64, 2)):
+        subs.append([kmeans_data(kind, n, d, rng), k,
+                     int(rng.integers(1 << 20))])
+    # 40 copies of 3 points, then 10 far points: the reseed takes far
+    # points, whose min distances no rounding can reorder
+    rep = np.concatenate([
+        np.repeat(kmeans_data(kind, 3, d, rng), [30, 6, 4], 0),
+        4 * kmeans_data(kind, 10, d, rng)])
+    subs.append([rep, 5, _dup_seed(rep, 5)])
+    rows = np.concatenate([s[0] for s in subs])
+    perm = rng.permutation(len(rows))
+    x = rows[perm]
+    where = np.argsort(perm)                  # row i of `rows` is x[where[i]]
+    pts, offs, ks, init, at = [], [0], [], [], 0
+    for sub, k, sd in subs:
+        pts.append(where[at:at + len(sub)])
+        at += len(sub)
+        offs.append(at)
+        ks.append(k)
+        row = np.zeros(16, np.int32)
+        row[:k] = np.random.default_rng(sd).choice(len(sub), k, replace=False)
+        init.append(row)
+    to = [torch.from_numpy(np.asarray(a, np.int32))
+          for a in (np.concatenate(pts), offs, ks, np.stack(init))]
+    return (torch.from_numpy(x), *to, [(s[0], s[1], s[2]) for s in subs])
+
+
+def per_cell_size_bound(x, cents, bound, seed=0, device="cpu",
+                        max_rounds=20):
+    """``enforce_size_bound`` as the reference writes it: one fused
+    ``kmeans`` (K2, sort, K3) per oversized cell, taken as ``x[a == c]``."""
+    from repro_torch.build.kmeans import kmeans
+    from repro_torch.kernels import ops
+
+    xd = torch.from_numpy(x).to(device)
+    cents = cents.copy()
+    for rnd in range(max_rounds):
+        a, _, _, counts = ops.kmeans_assign_update(
+            xd, torch.from_numpy(cents).to(device))
+        a, counts = a.cpu().numpy(), counts.cpu().numpy()
+        over = np.nonzero(counts > bound)[0]
+        if over.size == 0:
+            break
+        new_rows = []
+        for c in over:
+            sub, _, _ = kmeans(x[a == c], 2, iters=4,
+                               seed=seed + 131 * rnd + int(c), device=device)
+            cents[c] = sub[0]
+            new_rows.append(sub[1])
+        cents = np.concatenate([cents, np.stack(new_rows)], axis=0)
+    return cents

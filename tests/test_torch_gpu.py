@@ -5,6 +5,9 @@ the resident serve path and the unfused build on the card.
 This file imports no JAX, so it runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The batched k-means K23 is held against its plain version and, bit for
+bit, against the per-node CUDA loop (K2, sort, K3) it replaces.
 """
 import dataclasses
 
@@ -14,8 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_port import (  # noqa: E402,F401
-    assert_candidates_match, cuda, f32_case, grid_points, q8_case,
-    torch_threads,
+    assert_candidates_match, cuda, f32_case, grid_points,
+    kmeans_batched_case, per_cell_size_bound, q8_case, torch_threads,
 )
 
 pytestmark = pytest.mark.gpu
@@ -97,7 +100,8 @@ def test_small_build_and_serve_on_card_match_cpu(cuda, tmp_path):
     idx, llsp, _ = build_index(x, cfg, str(tmp_path / "a"), queries=q,
                                query_topk=np.minimum(topk, 20), device=cuda)
     counts = LAUNCHES.snapshot()
-    assert counts["kmeans_assign_update"] > 0 and counts["kmeans_mstep"] > 0
+    # the splitter runs on K23; enforce_size_bound's reassignments on K2
+    assert counts["kmeans_batched"] > 0 and counts["kmeans_assign_update"] > 0
     again, _, _ = build_index(x, cfg, str(tmp_path / "b"), device=cuda)
     assert index_content_hash(again) == index_content_hash(idx)
     scfg = SearchConfig(k=10, nprobe_max=16, pruning="llsp", n_ratio=8)
@@ -336,3 +340,173 @@ def test_legacy_kernels_keep_a_nan_distance(cuda, kernel):
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                equal_nan=True)
+
+
+ITERS = 5
+
+
+def _per_node_cuda(xd, pts, offs, k, init, iters):
+    """The per-node loop the splitter ran before K23: K2, a stable sort and
+    K3 on each sub-problem in turn, on the card."""
+    from repro_torch.kernels import kmeans_assign as tassign
+    from repro_torch.kernels import kmeans_mstep as tmstep
+    from repro_torch.kernels.kmeans_batched import lloyd
+
+    outs = []
+    for s in range(k.shape[0]):
+        lo, hi, ks = int(offs[s]), int(offs[s + 1]), int(k[s])
+        xs = xd[pts[lo:hi].to(xd.device).long()].contiguous()
+        c0 = xs[init[s, :ks].to(xd.device).long()].contiguous()
+        outs.append(lloyd(xs, c0, iters, tassign.kmeans_assign_update_cuda,
+                          tmstep.kmeans_mstep_cuda))
+    return outs
+
+
+@pytest.mark.parametrize("kind,iters", [("grid", 1), ("gaussian", ITERS)])
+def test_kmeans_batched_matches_plain(cuda, kind, iters):
+    """Grid inputs are exact while the centroids are integers, i.e. through
+    the first E-step and M-step (the means are IEEE divisions on both
+    sides): bit-equal.  Later iterations' distances round differently from
+    the plain version's matrix product, so several iterations are held to
+    the tolerance on Gaussian inputs."""
+    from repro_torch.kernels import kmeans_batched as tb
+
+    x, pts, offs, k, init, _ = kmeans_batched_case(kind, d=24, seed=5)
+    xd = x.to(cuda)
+    got = tb.kmeans_batched_cuda(xd, pts, offs, k, init, iters)
+    want = tb.kmeans_batched_plain(xd, pts, offs, k, init, iters)
+    torch.cuda.synchronize()
+    if kind == "grid":
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    assert (got[0] == want[0]).float().mean() >= 0.99
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [6, 37, 128, 200, 1024])
+def test_kmeans_batched_bit_equal_to_per_node_cuda_loop(cuda, d):
+    """Every tile height (64 rows at D 128, 32 at 200, 8 at 1024) and both
+    copy widths (16-byte cp.async at D % 4 == 0, 4-byte otherwise)."""
+    from repro_torch.kernels import kmeans_batched as tb
+
+    x, pts, offs, k, init, _ = kmeans_batched_case("gaussian", d=d, seed=d)
+    xd = x.to(cuda)
+    a, md, cents, counts = tb.kmeans_batched_cuda(xd, pts, offs, k, init,
+                                                  ITERS)
+    for s, (c, pa, pmd, pcnt) in enumerate(
+            _per_node_cuda(xd, pts, offs, k, init, ITERS)):
+        lo, hi, ks = int(offs[s]), int(offs[s + 1]), int(k[s])
+        assert torch.equal(a[lo:hi], pa)
+        assert torch.equal(md[lo:hi], pmd)
+        assert torch.equal(cents[s, :ks], c)
+        assert torch.equal(counts[s, :ks], pcnt)
+        assert not cents[s, ks:].any() and not counts[s, ks:].any()
+
+
+def test_kmeans_batched_deterministic_run_to_run(cuda):
+    from repro_torch.kernels import kmeans_batched as tb
+
+    x, pts, offs, k, init, _ = kmeans_batched_case("gaussian", d=128, seed=9)
+    xd = x.to(cuda)
+    first = tb.kmeans_batched_cuda(xd, pts, offs, k, init, 8)
+    for _ in range(3):
+        for u, v in zip(first, tb.kmeans_batched_cuda(xd, pts, offs, k, init,
+                                                      8)):
+            assert torch.equal(u, v)
+
+
+def test_kmeans_batched_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import kmeans_batched as tb
+
+    x, pts, offs, k, init, _ = kmeans_batched_case("grid", d=8, seed=1)
+    xd = x.to(cuda)
+    bad_k = k.clone()
+    bad_k[1] = 17
+    bad_init = init.clone()
+    bad_init[0, 0] = 50                              # sub-problem 0 has 50
+    bad_pts = pts.clone()
+    bad_pts[3] = x.shape[0]
+    for args, msg in (((xd, pts, offs, bad_k, init), "1 <= k"),
+                      ((xd, pts, offs, k, bad_init), "init out of range"),
+                      ((xd, bad_pts, offs, k, init), "pts out of range"),
+                      ((xd, pts.to(cuda), offs, k, init), "host int32"),
+                      ((torch.zeros((4, 1025), device=cuda), pts[:4],
+                        torch.tensor([0, 4]).int(), k[:1], init[:1]),
+                       "D=1025")):
+        with pytest.raises(ValueError, match=msg):
+            tb.kmeans_batched_cuda(*args, ITERS)
+
+
+def test_lockstep_splitter_on_card_equals_per_node_splitter(cuda):
+    from repro_torch.build.kmeans import SplitStats, \
+        balanced_hierarchical_kmeans, balanced_hierarchical_kmeans_many
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    rng = np.random.default_rng(4)
+    chunks = [rng.normal(size=(n, 32)).astype(np.float32)
+              for n in (1500, 900, 40, 1200)]
+    chunks.append(np.repeat(chunks[0][:1], 300, axis=0))   # median splits
+    seeds = [1000 * i for i in range(len(chunks))]
+    st = SplitStats()
+    LAUNCHES.reset()
+    got = balanced_hierarchical_kmeans_many(chunks, seeds, 64, device=cuda,
+                                            stats=st)
+    counts = LAUNCHES.snapshot()
+    assert counts["kmeans_batched"] == st.steps == len(st.kernel_ms)
+    assert counts["kmeans_assign_update"] == counts["kmeans_mstep"] == 0
+    for chunk, seed, (gc, ga) in zip(chunks, seeds, got):
+        wc, wa = balanced_hierarchical_kmeans(chunk, 64, seed=seed,
+                                              device=cuda)
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(ga, wa)
+
+
+def test_size_bound_on_card_equals_per_cell_2means(cuda):
+    """``enforce_size_bound`` runs each round's 2-means in one K23 launch;
+    the per-cell loop (fused ``kmeans``: K2, sort, K3) gives the same
+    centroids bit for bit."""
+    from repro_torch.build.kmeans import enforce_size_bound
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(20000, 32)).astype(np.float32)
+    start = x[:6].copy()
+    LAUNCHES.reset()
+    got = enforce_size_bound(x, start, 300, seed=2, device=cuda)
+    counts = LAUNCHES.snapshot()
+    assert counts["kmeans_mstep"] == 0
+    assert counts["kmeans_batched"] == counts["kmeans_assign_update"] - 1
+    np.testing.assert_array_equal(
+        got, per_cell_size_bound(x, start, 300, seed=2, device=cuda))
+
+
+@pytest.mark.parametrize("kernel", ["kmeans_assign_update", "kmeans_batched"])
+def test_kmeans_kernels_keep_a_nan_distance(cuda, kernel):
+    """A NaN row and a NaN centroid: the NaN distance wins the argmin (the
+    first NaN first) and stays NaN in min_dist, as in the plain versions
+    (torch.argmin, the reference's jnp.argmin and jnp.maximum clamp); an
+    fmaxf clamp with a strict < would turn it into 0 and never pick it."""
+    from repro_torch.kernels import kmeans_assign as tassign
+    from repro_torch.kernels import kmeans_batched as tb
+
+    if kernel == "kmeans_assign_update":
+        x, c = grid_points(300, 7, 5, seed=3)
+        x[17, 2] = np.nan
+        c[4, 1] = np.nan
+        args = _dev((x, c), cuda)
+        got = tassign.kmeans_assign_update_cuda(*args)
+        want = tassign.kmeans_assign_update_plain(*args)
+    else:
+        x, pts, offs, k, init, _ = kmeans_batched_case("grid", d=5, seed=2)
+        # a NaN in an initial centroid of sub-problem 1 and in a plain row
+        # of sub-problem 2; one iteration keeps the grid exact
+        x[int(pts[int(offs[1]) + int(init[1, 3])]), 1] = float("nan")
+        x[int(pts[int(offs[2]) + 7]), 2] = float("nan")
+        xd = x.to(cuda)
+        got = tb.kmeans_batched_cuda(xd, pts, offs, k, init, 1)
+        want = tb.kmeans_batched_plain(xd, pts, offs, k, init, 1)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[1]).any()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)

@@ -123,6 +123,41 @@ def test_kmeans_assign_plain_bit_equal_to_jax(n, k, d):
     np.testing.assert_array_equal(rs.numpy(), ts.numpy())
 
 
+@pytest.mark.parametrize("nan_at", ["row", "centroid", "both"])
+def test_kmeans_assign_plain_keeps_a_nan_distance_as_jax(nan_at):
+    """A NaN distance wins the argmin, the first NaN first (jnp.argmin and
+    torch.argmin), and stays NaN in min_dist (jnp.maximum's clamp), on the
+    Pallas kernel in interpret mode and on the reference's ops path alike.
+    Sums: the reference folds them with a one-hot product, where 0 x NaN
+    spreads a NaN coordinate into every cluster's column; the port adds a
+    row into its own cluster only, so its NaN sums are a subset of the
+    reference's and every other sum is equal."""
+    x, c = grid_points(300, 7, 5, seed=3)
+    if nan_at in ("row", "both"):
+        x[17, 2] = np.nan
+    if nan_at in ("centroid", "both"):
+        c[4, 1] = np.nan
+    ta, tmd, ts, tc = tassign.kmeans_assign_update_plain(*_t(x, c))
+    ja, jmd, js, jc = j_assign(jnp.asarray(x), jnp.asarray(c), bn=256,
+                               interpret=True)
+    oa, omd, osum, ocnt = jops.kmeans_assign_update(jnp.asarray(x),
+                                                    jnp.asarray(c))
+    for wa, wmd, ws, wc in ((ja, jmd, js, jc), (oa, omd, osum, ocnt)):
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(wa))
+        np.testing.assert_array_equal(tmd.numpy(), np.asarray(wmd))
+        np.testing.assert_array_equal(tc.numpy(),
+                                      np.asarray(wc).astype(np.int32))
+        ws = np.asarray(ws)
+        assert not (np.isnan(ts.numpy()) & ~np.isnan(ws)).any()
+        keep = ~np.isnan(ws)
+        np.testing.assert_array_equal(ts.numpy()[keep], ws[keep])
+    assert np.isnan(tmd.numpy()).any()
+    if nan_at == "row":
+        assert ta[17] == 0                 # every distance NaN: index 0
+    else:
+        assert (ta.numpy() == 4).sum() >= 299   # the NaN centroid wins
+
+
 @pytest.mark.parametrize("k,d,n_empty,int_counts", [(8, 16, 3, False),
                                                     (130, 7, 40, True),
                                                     (1, 4, 1, False)])
@@ -170,3 +205,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tassign.kmeans_assign_update_cuda(x, c)
     with pytest.raises(ValueError, match="needs CUDA"):
         tmstep.kmeans_mstep_cuda(c, torch.ones(2), c)
+    from repro_torch.kernels import kmeans_batched as tbatched
+
+    idx = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tbatched.kmeans_batched_cuda(x, idx, torch.tensor([0, 10]).int(),
+                                     torch.ones(1, dtype=torch.int32),
+                                     torch.zeros((1, 16), dtype=torch.int32),
+                                     3)
