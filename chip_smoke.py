@@ -14,12 +14,20 @@ Phases, each of which raises on failure:
    ragged ones and with a NaN payload in a live row (which must come out
    NaN, as the reference's clamp keeps it); K23 also bit for bit against
    the per-node K2 + sort + K3 loop it replaces, and K2 and K23 keep a NaN
-   distance (a NaN row, a NaN centroid) as their plain versions do;
+   distance (a NaN row, a NaN centroid) as their plain versions do; K2 bit
+   for bit on grid inputs with its tiles cut at ragged N, K and D (37, 128,
+   1024) and with a non-finite coordinate (the sums' one-hot rule, K23
+   too); B2 at one block a tile and at many, with one id in two chunks
+   and a query with every probe masked; K1 and B2 with a NaN distance in
+   a live row of the first, a middle or the last slot of a query's plan,
+   or of a slot only one query of its tile probes (the query's candidates
+   restart after that slot, as the reference's _extract_topk gives);
 3. build: builds a SIFT1M-sized index (1,000,000 x 128, the
    ann-benchmarks sift-128-euclidean base size) with the port's own
    ``build_index`` (launch serve settings: max_cluster_size 96,
    cluster_len 128, LLSP levels (8, 16), 8 ratio features); prints stage
-   1's lockstep steps, K23's device time and the host's bookkeeping time;
+   1's lockstep steps, K23's device time, the host's bookkeeping time and
+   the index's ``index_content_hash`` (16 hex digits);
    then stage 1 per node on the card (K2 + sort + K3 per splitter node and
    per oversized cell, as before K23) must give the same centroids bit for
    bit, and on the first 20 chunks the lockstep splitter is timed beside
@@ -30,11 +38,14 @@ Phases, each of which raises on failure:
    dispatches;
 5. parity: a subset of those batches through the same pipeline on the CPU
    (plain versions) must give the same ids up to ties;
-6. kernel times at the main paths' shapes (CUDA events), printed as one
-   JSON line with each kernel's launches (summed over every main-path run
-   of phases 3-11), time, bound and plain time (K1 and B2 timed alone on a
-   prebuilt plan, beside their wrappers' times; K23 on the 1M build's
-   largest step, beside the build's own per-step times);
+6. kernel times at the main paths' shapes (CUDA events around a run of
+   launches), printed as one JSON line with each kernel's launches (summed
+   over every main-path run of phases 3-11), time, bound and plain time
+   (K1 and B2 timed alone on a prebuilt plan, beside their wrappers'
+   times, B2 with its block count and split into its two kernels; K2 at
+   the 1M reassignment with its per-kernel split from torch.profiler; K23
+   on the 1M build's largest step, beside the build's own per-step times;
+   B5 also at the shapes phase 10's unfused build launched it with);
 7. resident f32: ``serve_step`` over the phase-4 queries on the index held
    on the card, fused (B2) and legacy (B6a), then ``serve_leveled`` and the
    resident q8 tier (``attach_quantized``, K1); recall against the probe
@@ -342,20 +353,45 @@ def check_k3(case: str, sums, counts, reseed) -> float:
     return 0.0
 
 
-def check_b2(case: str, k2: int, *args) -> float:
+def check_b2(case: str, k2: int, *args, chunks=(None,)) -> float:
+    """B2 against its plain version at each block count of ``chunks``
+    (None: the card's own count)."""
     import torch
 
     from repro_torch.kernels import ivf_scan as scan
 
-    gd, gi = scan.ivf_scan_topk_cuda(*args, k2=k2)
     wd, wi = scan.ivf_scan_topk_plain(*args, k2=k2)
-    torch.cuda.synchronize()
-    if bool(torch.isnan(gd).any()):
-        raise AssertionError(f"B2 {case}: NaN reached the candidates")
-    err = candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), F32_TOL,
-                           f"B2 {case}")
-    log(f"[kernels] B2 {case}: ok max_abs_err={err:.3g}")
+    err = 0.0
+    s_len = scan.BQ * args[2].shape[1]
+    for n in chunks:
+        n = None if n is None else min(n, s_len)
+        gd, gi = scan.ivf_scan_topk_cuda(*args, k2=k2, chunks=n)
+        torch.cuda.synchronize()
+        if bool(torch.isnan(gd).any()):
+            raise AssertionError(f"B2 {case}: NaN reached the candidates")
+        err = max(err, candidates_match(gd.cpu(), gi.cpu(), wd.cpu(),
+                                        wi.cpu(), F32_TOL,
+                                        f"B2 {case} chunks={n}"))
+    log(f"[kernels] B2 {case}: ok at chunks {list(chunks)} "
+        f"max_abs_err={err:.3g}")
     return err
+
+
+def check_k2_exact(case: str, x, cents) -> float:
+    """K2 against its plain version on grid inputs, where every distance,
+    sum and count is exact: equal, NaN for NaN (the sums' one-hot rule)."""
+    import torch
+
+    from repro_torch.kernels import kmeans_assign as am
+
+    got = am.kmeans_assign_update_cuda(x, cents)
+    want = am.kmeans_assign_update_plain(x, cents)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    log(f"[kernels] K2 {case}: ok, bit-equal, "
+        f"{int(torch.isnan(got[2]).sum())} NaN sums")
+    return 0.0
 
 
 def check_b6a(case: str, post, cids, mask, queries) -> float:
@@ -619,6 +655,9 @@ def phase_kernels() -> dict:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda_lib
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_port import NAN_WHERE, plant_nan   # the CPU tests' NaN cases
+
     resolve_device(DEVICE)                 # TF32 off for the plain versions
     t0 = time.perf_counter()
     info = cuda_lib.build_info()
@@ -642,6 +681,14 @@ def phase_kernels() -> dict:
     k1("k2 > live candidates", 200, 9, 16, 32, 5, 3, seed=3, dead=0.5,
        masked=0.5)
     k1("D=1024 L=64 k2=256", 256, 20, 64, 1024, 3, 4, seed=4, dead=0.1)
+    # a NaN distance of a live row empties the query's buffer at its slot
+    for where in NAN_WHERE:
+        args = list(q8_inputs(64, 128, 128, 32, 16, seed=40, dead=0.05,
+                              masked=0.1, device="cpu"))
+        plant_nan(*(args[i].numpy() for i in (2, 4, 5, 6)), where, q=1)
+        e = check_k1(f"NaN in a live row, {where} slot", 24,
+                     *[a.cuda() for a in args])
+        errs["ivf_scan_q8_topk"] = max(errs["ivf_scan_q8_topk"], e)
 
     def k2(case, n, k, d, seed):
         e = check_k2(case, *kmeans_inputs(n, k, d, seed=seed))
@@ -661,6 +708,24 @@ def phase_kernels() -> dict:
     a, *_ = am.kmeans_assign_update_cuda(x, c)
     if int(a.max()) >= 16:
         raise AssertionError("K2: a tie went to the higher index")
+    # the 128 x 128 tiles off their edges, D 37 / 128 / 1024, and the sums'
+    # one-hot rule for a non-finite coordinate, bit for bit on grid inputs
+    import numpy as np
+    for (n, k, d), bad in (((1000, 300, 37), None), ((2049, 257, 128), None),
+                           ((300, 130, 1024), None), ((1000, 300, 37), "nan"),
+                           ((2049, 257, 128), "inf"),
+                           ((300, 130, 1024), "-inf and nan")):
+        rng = np.random.default_rng(n + d)
+        xg = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+        cg = rng.integers(-4, 5, size=(k, d)).astype(np.float32)
+        if bad:
+            xg[n // 3, d // 2] = np.nan if bad == "nan" else \
+                (np.inf if bad == "inf" else -np.inf)
+            if bad == "-inf and nan":
+                xg[n // 2, d // 2] = np.nan
+        check_k2_exact(f"grid N{n} K{k} D{d} {bad or 'finite'}",
+                       torch.from_numpy(xg).cuda(),
+                       torch.from_numpy(cg).cuda())
 
     for case, args in (("main K8 D128", k3_inputs(8, 128, 2, seed=11)),
                        ("K14000 many empty", k3_inputs(14000, 128, 900,
@@ -705,13 +770,50 @@ def phase_kernels() -> dict:
     check_kmeans_nan("K23 NaN row + NaN centroid",
                      kb.kmeans_batched_cuda(xg_d, pts, offs, ks, init, 1),
                      kb.kmeans_batched_plain(xg_d, pts, offs, ks, init, 1))
+    # an inf coordinate in sub-problem 1, away from its initial centroids:
+    # the one-hot rule makes that column NaN in its other clusters' means
+    xi = torch.from_numpy(np.random.default_rng(32).integers(
+        -4, 5, size=(300, 5)).astype(np.float32))
+    xi[150, 3] = float("inf")
+    xi_d = xi.cuda()
+    got = kb.kmeans_batched_cuda(xi_d, pts, offs, ks, init, 1)
+    want = kb.kmeans_batched_plain(xi_d, pts, offs, ks, init, 1)
+    torch.cuda.synchronize()
+    if not bool(torch.isnan(want[2][1]).any()):
+        raise AssertionError("K23 one-hot rule: the plain version has no "
+                             "NaN centroid")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    log(f"[kernels] K23 inf coordinate: ok, "
+        f"{int(torch.isnan(got[2]).sum())} NaN centroid entries, equal to "
+        f"the plain version's")
 
-    def b2(case, k2, *shape, **kw):
-        e = check_b2(case, k2, *f32_inputs(*shape, **kw))
+    def b2(case, k2, *shape, chunks=(None, 1, 3, 128), **kw):
+        e = check_b2(case, k2, *f32_inputs(*shape, **kw), chunks=chunks)
         errs["ivf_scan_topk"] = max(errs["ivf_scan_topk"], e)
 
     b2("main 512x128x128 B32 P16", 24, 512, 128, 128, 32, 16, seed=15,
        dead=0.05, masked=0.2, nan_dead=True)
+    # one id in a low and a high cluster that query 0 probes, so the copies
+    # land in different chunks; query 3 with every probe masked
+    post, ids, cids, mask, q = f32_inputs(512, 128, 128, 32, 16, seed=25,
+                                          dead=0.05, masked=0.1,
+                                          device="cpu")
+    cids[0, :2], mask[0, :2] = torch.tensor([2, 500]), True
+    ids[2, 5] = ids[500, 9] = 10_000_000
+    post[500, 9] = q[0] + 0.01
+    mask[3] = False
+    e = check_b2("dup id across chunks + masked query", 24,
+                 *[a.cuda() for a in (post, ids, cids, mask, q)],
+                 chunks=(None, 1, 2, 64))
+    errs["ivf_scan_topk"] = max(errs["ivf_scan_topk"], e)
+    for where in NAN_WHERE:
+        args = list(f32_inputs(64, 128, 128, 32, 16, seed=26, dead=0.05,
+                               masked=0.1, device="cpu"))
+        plant_nan(*(a.numpy() for a in args[:4]), where, q=1)
+        e = check_b2(f"NaN in a live row, {where} slot", 24,
+                     *[a.cuda() for a in args], chunks=(None, 1, 5))
+        errs["ivf_scan_topk"] = max(errs["ivf_scan_topk"], e)
     b2("ragged B13 dead+masked+dup NaN", 24, 40, 48, 24, 13, 7, seed=16,
        dead=0.3, masked=0.3, dup=True, nan_dead=True)
     b2("k2 > live candidates", 200, 9, 16, 32, 5, 3, seed=17, dead=0.5,
@@ -815,6 +917,8 @@ def phase_build(work: str) -> dict:
                                  f"is back on the build's path")
     if llsp is None:
         raise AssertionError("build trained no LLSP models")
+    from repro_torch.build.pipeline import index_content_hash
+    log(f"[build] index_content_hash={index_content_hash(index)[:16]}")
     compare_per_node(x, cfg, np.load(os.path.join(work, "build",
                                                   "stage1_centroids.npy")),
                      20)
@@ -1348,6 +1452,10 @@ def phase_cpu_resident(built: dict, served: dict, resident: dict) -> dict:
 # --------------------------------------------------------------------------
 # phase 10: the unfused build (pairwise_l2 + host float64 M-step)
 # --------------------------------------------------------------------------
+# (N, M, D) of every B5 launch of phase 10's unfused build, for phase 6
+B5_SHAPES: list = []
+
+
 def phase_unfused(work: str) -> dict:
     import numpy as np
     import torch
@@ -1368,6 +1476,14 @@ def phase_unfused(work: str) -> dict:
     q_train, topk = make_queries(spec, 256)
     log(f"[unfused] N={N_UNFUSED}, smaller than phase 3's: the unfused "
         f"path's host float64 scatter-add makes a 1M build slow")
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    launch_b5 = pw.pairwise_l2_cuda
+
+    def recording_b5(a, b):
+        B5_SHAPES.append((a.shape[0], b.shape[0], a.shape[1]))
+        return launch_b5(a, b)
+
     builds = {}
     for fused in (False, True):
         cfg = BuildConfig(max_cluster_size=96, cluster_len=128,
@@ -1376,10 +1492,15 @@ def phase_unfused(work: str) -> dict:
                           llsp=LLSPConfig(levels=(8, 16), n_ratio_features=8))
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        index, llsp, report = build_index(
-            x, cfg, os.path.join(work, f"build-{N_UNFUSED}-{fused}"),
-            queries=q_train, query_topk=np.minimum(topk, 50).astype(np.int32),
-            device=DEVICE)
+        pw.pairwise_l2_cuda = launch_b5 if fused else recording_b5
+        try:
+            index, llsp, report = build_index(
+                x, cfg, os.path.join(work, f"build-{N_UNFUSED}-{fused}"),
+                queries=q_train,
+                query_topk=np.minimum(topk, 50).astype(np.int32),
+                device=DEVICE)
+        finally:
+            pw.pairwise_l2_cuda = launch_b5
         secs = time.perf_counter() - t0
         launches = path_launches(f"{'fused' if fused else 'unfused'} build "
                                  f"N={N_UNFUSED} (phase 10)")
@@ -1393,6 +1514,9 @@ def phase_unfused(work: str) -> dict:
     unf = builds[False]
     if unf["launches"]["pairwise_l2"] < 1:
         raise AssertionError("the unfused build never launched pairwise_l2")
+    if len(B5_SHAPES) != unf["launches"]["pairwise_l2"]:
+        raise AssertionError(f"recorded {len(B5_SHAPES)} B5 shapes for "
+                             f"{unf['launches']['pairwise_l2']} launches")
     for name in ("kmeans_assign_update", "kmeans_batched"):
         if unf["launches"][name] != 0:
             raise AssertionError(f"the unfused build launched {name}")
@@ -1803,6 +1927,10 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     ms = time_ms(lambda: am.kmeans_assign_update_cuda(x, cents), n=5, warm=1)
     plain = time_ms(lambda: am.kmeans_assign_update_plain(x, cents), n=3,
                     warm=1)
+    split = kernel_split_ms(lambda: am.kmeans_assign_update_cuda(x, cents),
+                            K2_PARTS, n=3)
+    log(f"[times] K2 split at N={n} K={k} D={d} (ms a launch, "
+        f"torch.profiler; Memset: each of its three): {split}")
     nbytes = (n * d + k * d) * 4 + n * 8 + (k * d + k) * 4
     xs, cs = kmeans_inputs(5000, 8, 128, seed=21)
     small = time_ms(lambda: am.kmeans_assign_update_cuda(xs, cs), n=50)
@@ -1816,7 +1944,7 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
                      "no single PyTorch call fuses the argmin with the "
                      "per-cluster sums and counts",
                      f"N={n} K={k} D={d} (enforce_size_bound)",
-                     splitter_shape_ms=small))
+                     splitter_shape_ms=small, split_ms=split))
     # K3: the splitter's M-step before K23, K = 8 centroids of D = 128
     sums, counts, reseed = k3_inputs(8, 128, 2, seed=22)
     ms = time_ms(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed), n=200)
@@ -1845,6 +1973,44 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
         elif r["launches"] < 1:
             raise AssertionError(f"{r['name']} launched on no main path")
     return rows
+
+
+# K2's kernels, by a part of the name the profiler shows
+K2_PARTS = ("row_norms_kernel", "assign_kernel", "segment_hist_kernel",
+            "column_scan_kernel", "offsets_kernel", "scatter_kernel",
+            "segment_sum_kernel", "Memset")
+
+
+# B2's two kernels: the scan of each (tile, chunk) and the merge
+B2_PARTS = ("f32_topk_kernel", "f32_topk_merge_kernel")
+
+
+def kernel_split_ms(run, parts, n: int) -> dict:
+    """Device ms a launch of each kernel whose profiler name contains one
+    of ``parts`` (its device time over its launches, in n calls of ``run``
+    under torch.profiler after a warm call); fails when the profiler
+    records none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(parts, 0.0)
+    count = dict.fromkeys(parts, 0)
+    for ev in prof.key_averages():
+        for part in parts:
+            if part in ev.key:
+                total[part] += getattr(ev, "self_device_time_total", 0.0)
+                count[part] += ev.count
+                break
+    if not all(count.values()):
+        raise AssertionError(f"the profiler recorded no launch of "
+                             f"{[p for p in parts if not count[p]]}")
+    return {p: total[p] / 1e3 / count[p] for p in parts}
 
 
 def k23_row(built: dict, kernel_errs: dict) -> dict:
@@ -1934,8 +2100,16 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
     post, ids, remap = fetched.tensors()
     pc, pm, pq = scan._pad_tile(remap, pmask, plan.queries_dev, scan.BQ)
     tc, qs = scan.plan_tile_probes(pc, pm, scan.BQ, post.shape[0])
+    chunks = scan.b2_chunks(tc.shape[0], tc.shape[1], k2, tc.device)
     ms = time_ms(lambda: scan.ivf_scan_topk_planned(post, ids, tc, qs, pq,
                                                     k2=k2), n=100)
+    one_block = time_ms(lambda: scan.ivf_scan_topk_planned(
+        post, ids, tc, qs, pq, k2=k2, chunks=1), n=100)
+    split = kernel_split_ms(lambda: scan.ivf_scan_topk_planned(
+        post, ids, tc, qs, pq, k2=k2), B2_PARTS, n=20)
+    log(f"[times] B2 on one phase-8 batch: {tc.shape[0]} tiles x {chunks} "
+        f"chunks = {tc.shape[0] * chunks} blocks, {ms:.4f} ms (ms a launch "
+        f"by kernel: {split}); one block a tile {one_block:.4f} ms")
     wrapper = time_ms(lambda: scan.ivf_scan_topk_cuda(
         post, ids, remap, pmask, plan.queries_dev, k2=k2), n=100)
     plain = time_ms(lambda: scan.ivf_scan_topk_plain(
@@ -1964,7 +2138,9 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
                 "the probed posting rows",
                 f"phase-8 batch: B={b} P={pmask.shape[1]} R={post.shape[0]} "
                 f"used_rows={used} pairs={pairs} L={l} D={d} k2={k2} bq=8",
-                wrapper_ms=wrapper,
+                wrapper_ms=wrapper, blocks=tc.shape[0] * chunks,
+                tiles=tc.shape[0], chunks=chunks, split_ms=split,
+                one_block_a_tile_ms=one_block,
                 resident={"ms": r_ms, "wrapper_ms": r_wrapper,
                           "plain_ms": r_plain, "bound_ms": r_bound,
                           "shape": f"B={qd.shape[0]} "
@@ -2083,7 +2259,48 @@ def b5_row(built: dict, kernel_errs: dict) -> dict:
                 "torch.cdist(a, b): the square root of the same quantity "
                 "(Euclidean, not squared), timed as the yardstick",
                 f"N={n} M={m} D={d} (one build chunk vs the final centroids)",
-                library_ms=library)
+                library_ms=library, unfused_build=b5_unfused_shapes())
+
+
+def b5_bound_ms(n: int, m: int, d: int) -> float:
+    return max(((n + m) * d * 4 + n * m * 4) / HBM_BYTES_PER_S,
+               2 * n * m * d / FP32_FLOP_PER_S) * 1e3
+
+
+def b5_unfused_shapes() -> dict:
+    """B5 at the shapes phase 10's unfused build launched it with: the
+    launches summed by shape, the bound summed over every launch, and the
+    kernel, the plain version and torch.cdist timed at the shape that
+    launched most and at the one with the most work (launches x bound)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    if not B5_SHAPES:
+        raise AssertionError("phase 10 recorded no B5 launch")
+    shapes: dict = {}
+    for sh in B5_SHAPES:
+        shapes[sh] = shapes.get(sh, 0) + 1
+    work = {sh: c * b5_bound_ms(*sh) for sh, c in shapes.items()}
+    picks = {"most_launched": max(shapes, key=lambda sh: shapes[sh]),
+             "most_work": max(work, key=lambda sh: work[sh])}
+    rng = np.random.default_rng(27)
+    out = {"launches": len(B5_SHAPES), "distinct_shapes": len(shapes),
+           "bound_ms_sum": float(sum(work.values()))}
+    for tag, (n, m, d) in picks.items():
+        a = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+        b = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).cuda()
+        reps = 200 if n * m <= 1 << 20 else 10
+        out[tag] = {"shape": f"N={n} M={m} D={d}",
+                    "launches": shapes[(n, m, d)],
+                    "ms": time_ms(lambda: pw.pairwise_l2_cuda(a, b), n=reps),
+                    "plain_ms": time_ms(lambda: pw.pairwise_l2_plain(a, b),
+                                        n=reps),
+                    "library_ms": time_ms(lambda: torch.cdist(a, b), n=reps),
+                    "bound_ms": b5_bound_ms(n, m, d)}
+    log(f"[times] B5 at the unfused build's shapes: {out}")
+    return out
 
 
 def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops,

@@ -5,10 +5,16 @@
 // sorted probe plan from plan_tile_probes (tile_cids / qsel with one query
 // per tile) and, for every live packed row r, computes
 //
-//   d = ||q - c_r||^2 - 2 s_r (q - c_r) . r8 + s_r^2 ||r8||^2,  clamped >= 0,
+//   d = ||q - c_r||^2 - 2 s_r (q - c_r) . r8 + s_r^2 ||r8||^2,
 //
-// masks slots whose id is < 0, and merges the row into a running top-k2 that
-// is unique by id (per-id minimum).  Output is ascending, padded (+inf, -1).
+// clamped at 0 (a NaN stays NaN, as jnp.maximum keeps it), masks slots whose
+// id is < 0, and merges the row into a running top-k2 that is unique by id
+// (per-id minimum).  Output is ascending, padded (+inf, -1).  A NaN distance
+// of a live row empties the buffer at that slot, as the reference's
+// _extract_topk does (jnp.min gives NaN, so it emits (+inf, -1) k2 times and
+// kills nothing): only later slots refill it.  The port plans one query a
+// tile; its slots come in ascending cluster order, the order in which the
+// reference's tiles of 8 visit that query's clusters, so the wipes agree.
 //
 // What bounds it on an H100: at serving shapes (B = 32 queries, ~16 probes,
 // L = D = 128, k2 = 24) the bytes are tiny (a few MB of codes, mostly L2
@@ -108,6 +114,7 @@ q8_topk_kernel(const int8_t* __restrict__ q8, const float* __restrict__ scale,
     for (int w = 0; w < kThreads / 32; ++w) qcn += red[w];
     const float sc = scale[r];
 
+    bool nan_here = false;
     for (int l = tid; l < L; l += kThreads) {
       const int* row = blk + l * row_words;
       float cross = 0.0f;
@@ -120,14 +127,21 @@ q8_topk_kernel(const int8_t* __restrict__ q8, const float* __restrict__ scale,
         cross = fmaf(qq[3], (float)(int8_t)((word >> 24) & 0xff), cross);
       }
       float dist = qcn - 2.0f * sc * cross + norm2[(size_t)r * L + l];
-      dist = fmaxf(dist, 0.0f);
+      dist = dist < 0.0f ? 0.0f : dist;
       const int id = ids[(size_t)r * L + l];
+      nan_here |= id >= 0 && isnan(dist);
       cd[l] = id >= 0 ? dist : CUDART_INF_F;
       ci[l] = id;
     }
-    __syncthreads();
-
-    if (warp == 0) {
+    if (__syncthreads_or(nan_here)) {
+      // the reference's wipe: nothing of this slot or before survives
+      for (int j = tid; j < k2; j += kThreads) {
+        bd[j] = CUDART_INF_F;
+        bi[j] = -1;
+      }
+      worst = CUDART_INF_F;
+      worst_pos = k2 - 1;
+    } else if (warp == 0) {
       // Sequential merge semantics, one candidate at a time: an id already
       // in the buffer keeps its smaller distance, a new id replaces the
       // current worst when strictly better.  Candidates not below the worst

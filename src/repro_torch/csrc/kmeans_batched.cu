@@ -38,8 +38,11 @@
 // on either path: row norms one warp per row (lane-strided fmaf, xor tree),
 // the dot as sequential fmaf over d, repro::kmeans_dist and
 // repro::argmin_before; per-cluster sums in local row order from 0, as K2's
-// segment_sum_kernel, with no float atomics; the n_empty worst-served points
-// in descending min distance (a NaN first, the lower local index first
+// segment_sum_kernel, with no float atomics, and its one-hot rule for a
+// non-finite coordinate (a column that holds one outside cluster c makes
+// c's sum NaN there; `owner` keeps, per column, the one cluster that holds
+// its non-finite coordinates, or -2 for several); the n_empty worst-served
+// points in descending min distance (a NaN first, the lower local index first
 // among ties: torch.sort(descending=True, stable=True)); the mean as an
 // IEEE division by max(count, 1), empty clusters taking the reseed rows in
 // rank order, as K3.
@@ -68,7 +71,7 @@ __host__ inline size_t smem_bytes(int D, int TR) {
   const int LD = row_stride(D);
   const size_t floats = (size_t)kMaxK * LD + (size_t)kMaxK * D +
                         (size_t)2 * TR * LD + TR + kMaxK + kWarps;
-  const size_t ints = (size_t)TR + 3 * kMaxK + kWarps + 4;
+  const size_t ints = (size_t)TR + 3 * kMaxK + kWarps + 4 + D;
   return floats * 4 + ints * 4;
 }
 
@@ -139,7 +142,8 @@ kmeans_batched_kernel(const float* __restrict__ x, const int* __restrict__ pts,
   int* rank = cnt + kMaxK;                           // [16]
   int* wsel = rank + kMaxK;                          // [16]
   int* red_i = wsel + kMaxK;                         // [kWarps]
-  int* n_empty = red_i + kWarps;                     // [1]
+  int* n_empty = red_i + kWarps;                     // [4]
+  int* owner = n_empty + 4;                          // [D]
 
   const int s = blockIdx.x;
   const int t = threadIdx.x;
@@ -186,6 +190,7 @@ kmeans_batched_kernel(const float* __restrict__ x, const int* __restrict__ pts,
   const int last = max(1, iters) - 1;
   for (int it = 0; it <= last; ++it) {
     for (int e = t; e < kMaxK * D; e += kThreads) sums[e] = 0.0f;
+    for (int e = t; e < D; e += kThreads) owner[e] = -1;
     if (t < kMaxK) cnt[t] = 0;
     __syncthreads();
     load_tile(0);
@@ -277,7 +282,14 @@ kmeans_batched_kernel(const float* __restrict__ x, const int* __restrict__ pts,
         const int g = e / D, dcol = e - (e / D) * D;
         for (int r = 0; r < nr; ++r) {
           const int c = ta[r];
-          if (c % G == g) sums[c * D + dcol] += buf[r * LD + dcol];
+          if (c % G == g) {
+            const float v = buf[r * LD + dcol];
+            sums[c * D + dcol] += v;
+            if (!isfinite(v)) {
+              const int was = atomicCAS(&owner[dcol], -1, c);
+              if (was != -1 && was != c) atomicExch(&owner[dcol], -2);
+            }
+          }
         }
       }
       __syncthreads();
@@ -340,9 +352,11 @@ kmeans_batched_kernel(const float* __restrict__ x, const int* __restrict__ pts,
     for (int e = t; e < k * D; e += kThreads) {
       const int c = e / D, d = e - (e / D) * D;
       const int m = cnt[c];
-      cent[c * LD + d] =
-          m <= 0 ? x[(size_t)rows[wsel[rank[c]]] * D + d]
-                 : sums[c * D + d] / fmaxf((float)m, 1.0f);
+      const int o = owner[d];
+      const float sum = (o == -2 || (o >= 0 && o != c)) ? CUDART_NAN_F
+                                                        : sums[c * D + d];
+      cent[c * LD + d] = m <= 0 ? x[(size_t)rows[wsel[rank[c]]] * D + d]
+                                : sum / fmaxf((float)m, 1.0f);
     }
     __syncthreads();
     for (int c = warp; c < k; c += kWarps) {

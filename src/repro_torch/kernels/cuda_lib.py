@@ -40,10 +40,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ivf_scan_q8_topk_launch": [_P] * 10 + [_I] * 5 + [_P],
     "ivf_scan_q8_topk_smem_bytes": [_I, _I, _I],
-    "kmeans_assign_update_launch": [_P] * 11 + [_I] * 4 + [_P],
+    "kmeans_assign_update_launch": [_P] * 13 + [_I] * 4 + [_P],
     "kmeans_mstep_launch": [_P] * 5 + [_I] * 2 + [_P],
-    "ivf_scan_topk_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "ivf_scan_topk_launch": [_P] * 10 + [_I] * 6 + [_P],
     "ivf_scan_topk_smem_bytes": [_I, _I, _I],
+    "ivf_scan_topk_max_chunks": [_I, _I],
     "ivf_scan_launch": [_P] * 5 + [_I] * 5 + [_P],
     "pairwise_l2_launch": [_P] * 5 + [_I] * 3 + [_P],
     "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],

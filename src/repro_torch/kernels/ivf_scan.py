@@ -5,9 +5,12 @@
 * B2 ``ivf_scan_topk``, the candidate-compressed scan: per tile of ``bq``
   queries, every planned (query, row) distance in the norm form
   ||q||^2 - 2 q.p + ||p||^2 (clamped >= 0), merged into a running top-k2
-  unique by id.  :func:`ivf_scan_topk_cuda` launches
-  ``csrc/ivf_scan_topk.cu``; :func:`ivf_scan_topk_plain` computes the same
-  function with the same plan and :func:`extract_topk`.
+  unique by id; a NaN distance of a live row empties the query's
+  candidates at that slot (:func:`mask_through_last_nan`).
+  :func:`ivf_scan_topk_cuda` launches ``csrc/ivf_scan_topk.cu`` (a tile's
+  plan split over several blocks, then a merge of their partial top-k2);
+  :func:`ivf_scan_topk_plain` computes the same function with the same
+  plan and :func:`extract_topk`.
 * B6a ``ivf_scan``, the legacy scan: (B, P, L) distances, masked probes
   +inf.  :func:`ivf_scan_cuda` launches ``csrc/ivf_scan.cu``;
   :func:`ivf_scan_plain` is the plain version.
@@ -21,6 +24,8 @@
 of the tensors.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -108,6 +113,24 @@ def extract_topk(cat_d: torch.Tensor, cat_i: torch.Tensor, k2: int
             torch.stack(out_i, dim=1).to(torch.int32))
 
 
+def mask_through_last_nan(d: torch.Tensor, live: torch.Tensor
+                          ) -> torch.Tensor:
+    """The scan kernels' merge input: ``d`` (..., S, L) planned distances in
+    plan-slot order, ``live`` (..., S, L) the selected rows with id >= 0.
+    Returns ``d`` with every row that is not live, and every row of a slot
+    at or before the last slot holding a live NaN, set to +inf.
+
+    This is what the reference's per-slot ``_extract_topk`` makes of a NaN:
+    ``jnp.min`` of the buffer and the slot is NaN, so every pass emits
+    (+inf, -1) and kills nothing, and the query's buffer leaves that slot
+    empty.  Only the slots after it refill it."""
+    nan_slot = (live & torch.isnan(d)).any(dim=-1)              # (..., S)
+    s_idx = torch.arange(d.shape[-2], device=d.device)
+    last = torch.where(nan_slot, s_idx, -1).max(dim=-1, keepdim=True).values
+    keep = live & (s_idx > last)[..., None]
+    return torch.where(keep, d, INF)
+
+
 def _pad_tile(cids, mask, queries, bq):
     """Pad the batch to a multiple of ``bq`` with dead queries (zero
     vectors, every probe masked), as the reference's wrapper does."""
@@ -129,7 +152,9 @@ def ivf_scan_topk_plain(postings, posting_ids, cids, mask, queries, *,
     The kernel's structure in tensor form: the tile plan, every planned
     (query, row) distance, rows with id < 0 or unselected queries +inf
     (a select after the product, so a NaN payload in a dead row never
-    reaches the merge), then the :func:`extract_topk` merge rule."""
+    reaches the merge), the reference's NaN result
+    (:func:`mask_through_last_nan`), then the :func:`extract_topk` merge
+    rule."""
     b = queries.shape[0]
     r_count, l, _ = postings.shape
     cids, mask, q = _pad_tile(cids, mask, queries.to(torch.float32), bq)
@@ -146,7 +171,7 @@ def ivf_scan_topk_plain(postings, posting_ids, cids, mask, queries, *,
     ids = posting_ids[rows]                                   # (nb, S, L)
     live = (qsel.permute(0, 2, 1) != 0)[:, :, :, None] \
         & (ids >= 0)[:, None, :, :]
-    d = torch.where(live, d, INF).reshape(nb * bq, s_len * l)
+    d = mask_through_last_nan(d, live).reshape(nb * bq, s_len * l)
     ids = ids[:, None].expand(nb, bq, s_len, l).reshape(nb * bq, s_len * l)
     od, oi = extract_topk(d, ids, k2)
     return od[:b], oi[:b]
@@ -183,8 +208,24 @@ def _check_common(what, tensors: dict, dev) -> None:
     _require(0 < l <= MAX_L, what, f"L={l} outside [1, {MAX_L}]")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def b2_chunks(n_tiles: int, s_len: int, k2: int, dev) -> int:
+    """How many blocks B2 gives each tile: about four for every SM of the
+    card, within the kernel's own limit (``ivf_scan_topk_max_chunks``: at
+    least one slot a block, and as many partials as its merge stages)."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    want = -(-4 * _sm_count(index) // max(n_tiles, 1))
+    top = cuda_lib.library().ivf_scan_topk_max_chunks(s_len, k2)
+    return max(1, min(want, top))
+
+
 def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
-                       k2: int, bq: int = BQ):
+                       k2: int, bq: int = BQ, chunks: int | None = None):
     """Launch B2 on the tensors' CUDA device (current stream).
 
     Takes postings (R, L, D) f32, posting_ids (R, L) int32, cids (B, P)
@@ -192,7 +233,10 @@ def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
     device.  Limits: bq == 8, 1 <= k2 <= 256, D % 4 == 0 and D <= 1024,
     L <= 1024, postings 16-byte aligned, and the block's shared memory (a
     chunk of rows plus the tile's queries and buffers) within 227 KB.
-    Anything else raises; nothing falls back to the plain version."""
+    ``chunks`` is a test hook: it splits each tile's plan over that many
+    blocks (1 up to the kernel's limit, :func:`b2_chunks`); the serving
+    paths pass None, which takes :func:`b2_chunks`.  Anything else raises;
+    nothing falls back to the plain version."""
     what = "ivf_scan_topk"
     dev = queries.device
     _check_common(what, dict(postings=postings, posting_ids=posting_ids,
@@ -213,17 +257,18 @@ def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
     pc, pm, pq = _pad_tile(cids, mask, queries, bq)
     tile_cids, qsel = plan_tile_probes(pc, pm, bq, r_count)
     out_d, out_i = ivf_scan_topk_planned(postings, posting_ids, tile_cids,
-                                         qsel, pq, k2=k2)
+                                         qsel, pq, k2=k2, chunks=chunks)
     return out_d[:b], out_i[:b]
 
 
 def ivf_scan_topk_planned(postings, posting_ids, tile_cids, qsel, queries,
-                          *, k2: int):
+                          *, k2: int, chunks: int | None = None):
     """Launch B2 on a prebuilt plan: ``tile_cids`` (B/8, S) and ``qsel``
     (B/8, S, 8) from :func:`plan_tile_probes`, ``queries`` (B, D) padded to
-    whole tiles.  The inputs' limits are checked by
-    :func:`ivf_scan_topk_cuda`; this checks only the plan's shapes.
-    Returns the padded ((B, k2), (B, k2))."""
+    whole tiles, ``chunks`` blocks a tile (a test hook; None:
+    :func:`b2_chunks`).  The inputs' limits are checked by
+    :func:`ivf_scan_topk_cuda`; this checks only the plan's shapes and
+    ``chunks``.  Returns the padded ((B, k2), (B, k2))."""
     what = "ivf_scan_topk"
     dev = queries.device
     nb, s_len = tile_cids.shape
@@ -231,15 +276,27 @@ def ivf_scan_topk_planned(postings, posting_ids, tile_cids, qsel, queries,
     _require(queries.shape == (nb * BQ, d) and qsel.shape == (nb, s_len, BQ)
              and tile_cids.dtype == torch.int32
              and qsel.dtype == torch.int32, what, "plan shapes")
+    if chunks is None:
+        chunks = b2_chunks(nb, s_len, k2, dev)
+    top = cuda_lib.library().ivf_scan_topk_max_chunks(s_len, k2)
+    _require(1 <= chunks <= top, what,
+             f"chunks={chunks} outside [1, {top}] (S={s_len}, k2={k2})")
     tile_cids = tile_cids.contiguous()
     qsel = qsel.contiguous()
     queries = queries.contiguous()
     out_d = torch.empty((nb * BQ, k2), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb * BQ, k2), dtype=torch.int32, device=dev)
+    part = (torch.empty((nb * BQ, chunks, k2), dtype=torch.float32,
+                        device=dev),
+            torch.empty((nb * BQ, chunks, k2), dtype=torch.int32, device=dev),
+            torch.empty((nb * BQ, chunks), dtype=torch.int32, device=dev)) \
+        if chunks > 1 else None
+    pd, pi, pn = (t.data_ptr() for t in part) if part else (0, 0, 0)
     rc = cuda_lib.library().ivf_scan_topk_launch(
         postings.data_ptr(), posting_ids.data_ptr(), tile_cids.data_ptr(),
         qsel.data_ptr(), queries.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), nb, s_len, l, d, k2, cuda_lib.stream_handle(dev))
+        out_i.data_ptr(), pd, pi, pn, nb, s_len, l, d, k2, chunks,
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, what)
     cuda_lib.LAUNCHES.add(what)
     return out_d, out_i

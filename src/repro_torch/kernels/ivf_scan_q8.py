@@ -28,10 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.distance import INF
-
 from . import cuda_lib
-from .ivf_scan import extract_topk, plan_tile_probes
+from .ivf_scan import extract_topk, mask_through_last_nan, plan_tile_probes
 
 MAX_K2 = 256
 MAX_D = 1024
@@ -41,7 +39,10 @@ MAX_SMEM = 232_448          # bytes of shared memory one block may use
 
 def ivf_scan_q8_topk_plain(q8, scale, norm2, centroids, posting_ids, cids,
                            mask, queries, *, k2: int):
-    """Plain torch version: ((B, k2) ascending dists, (B, k2) ids)."""
+    """Plain torch version: ((B, k2) ascending dists, (B, k2) ids).  Each
+    query's probes in plan order (ascending cluster, as in the reference's
+    tiles), the reference's NaN result (:func:`mask_through_last_nan`),
+    then the :func:`extract_topk` merge rule."""
     r_count = q8.shape[0]
     b, p = cids.shape
     tile_cids, qsel = plan_tile_probes(cids, mask, 1, r_count)
@@ -54,7 +55,7 @@ def ivf_scan_q8_topk_plain(q8, scale, norm2, centroids, posting_ids, cids,
     d = torch.clamp_min(d, 0.0)
     ids = posting_ids[rows]                                   # (B, P, L)
     live = (qsel.reshape(b, p) != 0)[:, :, None] & (ids >= 0)
-    d = torch.where(live, d, INF)
+    d = mask_through_last_nan(d, live)
     return extract_topk(d.reshape(b, -1), ids.reshape(b, -1), k2)
 
 

@@ -3,7 +3,8 @@ thread limits, the card fixture, and the candidate comparison rule.
 
 Usage in test modules:  ``from _torch_port import cuda, torch_threads``.
 Also the inputs shared by the CPU and card tests (``q8_case``, ``f32_case``,
-``grid_points``, ``kmeans_batched_case``) and ``per_cell_size_bound``.
+``plant_nan``, ``grid_points``, ``kmeans_batched_case``) and
+``per_cell_size_bound``.
 Nothing here imports JAX: the card-only tests run where JAX is absent.
 """
 import numpy as np
@@ -96,6 +97,44 @@ def f32_case(c, l, d, b, p, seed, dead=0.0, masked=0.2, dup=False,
         cids[:, 1] = cids[:, 0]
     mask = rng.random((b, p)) >= masked
     return post, ids, cids, mask, queries
+
+
+NAN_WHERE = ("first", "middle", "last", "one_query")
+
+
+def plant_nan(target, ids, cids, mask, where, q=0, bq=8):
+    """Make one live row's distance NaN for query ``q``: a NaN in the f32
+    payload (C, L, D) or in the q8 ``norm2`` (C, L) of a row with id >= 0
+    in the first, a middle or the last cluster of q's plan (its live probes
+    in ascending cluster order, the order of the scan's slots), or, for
+    "one_query", of a middle cluster that no other query of q's tile of
+    ``bq`` probes (q also probes the last cluster with a live row, a slot
+    after it).  Takes numpy arrays (the numpy views of CPU tensors too:
+    ``chip_smoke.py`` plants its cases with this), edits them in place;
+    returns the cluster."""
+    c_n = ids.shape[0]
+    if where == "one_query":
+        c = c_n // 2
+        t0 = q // bq * bq
+        for r in range(t0, min(t0 + bq, cids.shape[0])):
+            if r != q:
+                cids[r][cids[r] == c] = 0
+        cids[q, 0], mask[q, 0] = c, True
+        cids[q, 1] = np.nonzero((ids >= 0).any(axis=1))[0][-1]
+        mask[q, 1] = True
+    else:
+        plan = np.unique(cids[q][mask[q] & (cids[q] >= 0)])
+        c = int(plan[{"first": 0, "middle": len(plan) // 2,
+                      "last": -1}[where]])
+    rows = np.nonzero(ids[c] >= 0)[0]
+    r = int(rows[len(rows) // 2]) if rows.size else 0
+    if not rows.size:
+        ids[c, 0] = ids.max() + 1
+    if target.ndim == 3:
+        target[c, r, 0] = np.nan
+    else:
+        target[c, r] = np.nan
+    return c
 
 
 def grid_points(n, k, d, seed):

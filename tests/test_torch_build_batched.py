@@ -56,6 +56,25 @@ def test_kmeans_batched_plain_matches_jax_kmeans(kind):
     assert reseeded >= 1
 
 
+@pytest.mark.parametrize("value", [np.inf, np.nan])
+def test_kmeans_batched_plain_follows_the_one_hot_rule_as_jax(value):
+    """A non-finite coordinate in one point of a sub-problem: after one
+    iteration (grid inputs stay exact) the centroids equal the JAX
+    package's ``kmeans(fused=True)``, NaN for NaN: the one-hot fold makes
+    that column NaN in every other cluster's sum, so in its mean."""
+    x, pts, offs, k, init, subs = batched_case("grid", d=6, seed=0)
+    s = 2
+    lo, hi, ks = int(offs[s]), int(offs[s + 1]), int(k[s])
+    r = next(i for i in range(hi - lo) if i not in init[s, :ks].tolist())
+    x[int(pts[lo + r]), 2] = float(value)
+    _, _, cents, _ = tbatched.kmeans_batched_plain(x, pts, offs, k, init, 1)
+    rows = x[pts[lo:hi].long()].numpy()
+    jc, _, _ = j_kmeans(rows, ks, iters=1, seed=subs[s][2], fused=True)
+    np.testing.assert_array_equal(cents[s, :ks].numpy(), jc)
+    assert np.isnan(jc[:, 2]).sum() >= ks - 1
+    assert np.isfinite(np.delete(jc, 2, axis=1)).all()
+
+
 def test_kmeans_batched_plain_is_the_per_node_loop():
     """On the CPU the batched plain version is ``build.kmeans.kmeans``
     exactly: every sub-problem's centroids, assignments and inertia."""

@@ -17,8 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_port import (  # noqa: E402,F401
-    assert_candidates_match, cuda, f32_case, grid_points,
-    kmeans_batched_case, per_cell_size_bound, q8_case, torch_threads,
+    NAN_WHERE, assert_candidates_match, cuda, f32_case, grid_points,
+    kmeans_batched_case, per_cell_size_bound, plant_nan, q8_case,
+    torch_threads,
 )
 
 pytestmark = pytest.mark.gpu
@@ -65,6 +66,33 @@ def test_kmeans_kernels_bit_equal_on_grid_inputs(cuda, n, k, d):
     reseed = x[:k].contiguous()
     assert torch.equal(tmstep.kmeans_mstep_cuda(s, cnt, reseed),
                        tmstep.kmeans_mstep_plain(s, cnt, reseed))
+
+
+@pytest.mark.parametrize("n,k,d,bad", [(1000, 300, 37, None),
+                                       (2049, 257, 128, None),
+                                       (300, 130, 1024, None),
+                                       (1000, 300, 37, "nan"),
+                                       (2049, 257, 128, "inf"),
+                                       (300, 130, 1024, "inf_and_nan")])
+def test_kmeans_assign_ragged_tiles_bit_equal(cuda, n, k, d, bad):
+    """K2's 128 x 128 tiles at N and K off the tile, D 37 (one short ring
+    stage), D 128 (resident rows) and D 1024 (rows staged in chunks), and a
+    non-finite coordinate: every output equal to the plain version's on
+    grid inputs, NaN for NaN (the one-hot rule of the sums)."""
+    from repro_torch.kernels import kmeans_assign as tassign
+
+    x, c = grid_points(n, k, d, seed=n + d)
+    if bad:
+        x[n // 3, d // 2] = np.inf if bad.startswith("inf") else np.nan
+        if bad == "inf_and_nan":
+            x[n // 2, d // 2] = np.nan
+    args = _dev((x, c), cuda)
+    got = tassign.kmeans_assign_update_cuda(*args)
+    want = tassign.kmeans_assign_update_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[2]).any() == bool(bad)
 
 
 def test_kmeans_assign_deterministic_run_to_run(cuda):
@@ -153,6 +181,80 @@ def test_f32_topk_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert not torch.isnan(gd).any()
     assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-4)
+
+
+def _b2_special_case(kind):
+    """B2 inputs for one merge edge: "dup_id" gives one id to a row of a
+    low and of a high cluster that query 0 probes, so the two copies land
+    in different chunks; "masked" masks every probe of query 3; "k2_big"
+    asks for more candidates than the live rows hold."""
+    if kind == "k2_big":
+        return f32_case(9, 16, 24, 5, 3, seed=40, dead=0.5, masked=0.5), 40
+    post, ids, cids, mask, q = f32_case(40, 32, 64, 16, 8, seed=41,
+                                        dead=0.1, masked=0.1)
+    if kind == "dup_id":
+        cids[0, :2], mask[0, :2] = (1, 38), True
+        ids[38, 5] = ids[1, 7] = 123_456
+        post[38, 5] = q[0] + 0.01                   # the nearer copy
+    else:
+        mask[3] = False
+    return (post, ids, cids, mask, q), 24
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7, None, 64])
+@pytest.mark.parametrize("kind", ["dup_id", "masked", "k2_big"])
+def test_f32_topk_kernel_chunks_match_plain(cuda, kind, chunks):
+    """B2 splits a tile's plan over ``chunks`` blocks (None: the card's
+    own count) and merges their partial top-k2: the same candidates as the
+    plain version at one chunk and at many."""
+    from repro_torch.kernels import ivf_scan as tscan
+
+    arrays, k2 = _b2_special_case(kind)
+    arrays = _dev(arrays, cuda)
+    s_len = 8 * arrays[2].shape[1]
+    n = None if chunks is None else min(chunks, s_len)
+    gd, gi = tscan.ivf_scan_topk_cuda(*arrays, k2=k2, chunks=n)
+    wd, wi = tscan.ivf_scan_topk_plain(*arrays, k2=k2)
+    torch.cuda.synchronize()
+    assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-4)
+    if kind == "dup_id":
+        row = gi[0].cpu().numpy()
+        assert (row == 123_456).sum() == 1
+    if kind == "masked":
+        assert torch.isinf(gd[3]).all() and (gi[3] == -1).all()
+
+
+@pytest.mark.parametrize("where", NAN_WHERE)
+@pytest.mark.parametrize("kernel", ["ivf_scan_topk", "ivf_scan_q8_topk"])
+def test_fused_scans_follow_the_reference_on_a_nan_distance(cuda, kernel,
+                                                            where):
+    """A NaN distance of a live row empties the query's candidates at that
+    slot; later slots refill them (the reference's _extract_topk, which
+    the plain versions follow): B2 at one chunk and at many, and K1."""
+    from repro_torch.kernels import ivf_scan as tscan
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    if kernel == "ivf_scan_topk":
+        arrays = f32_case(40, 32, 64, 16, 8, seed=42, dead=0.1, masked=0.1)
+        post, ids, cids, mask, _ = arrays
+        plant_nan(post, ids, cids, mask, where, q=1)
+        arrays = _dev(arrays, cuda)
+        want = tscan.ivf_scan_topk_plain(*arrays, k2=24)
+        gots = [tscan.ivf_scan_topk_cuda(*arrays, k2=24, chunks=n)
+                for n in (1, 5, None)]
+        tol = 1e-4
+    else:
+        arrays = q8_case(40, 32, 64, 16, 8, seed=43, dead=0.1, masked=0.1)
+        plant_nan(arrays[2], arrays[4], arrays[5], arrays[6], where, q=1)
+        arrays = _dev(arrays, cuda)
+        want = tq8.ivf_scan_q8_topk_plain(*arrays, k2=24)
+        gots = [tq8.ivf_scan_q8_topk_cuda(*arrays, k2=24)]
+        tol = 1e-3
+    torch.cuda.synchronize()
+    for gd, gi in gots:
+        assert not torch.isnan(gd).any()
+        assert_candidates_match(gd.cpu(), gi.cpu(), want[0].cpu(),
+                                want[1].cpu(), tol=tol)
 
 
 @pytest.mark.parametrize("c,l,d,b,p,masked", [(10, 8, 12, 5, 4, 0.3),

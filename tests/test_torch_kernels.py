@@ -11,7 +11,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_port import (  # noqa: E402,F401
-    assert_candidates_match, grid_points, q8_case, torch_threads,
+    NAN_WHERE, assert_candidates_match, grid_points, plant_nan, q8_case,
+    torch_threads,
 )
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -72,6 +73,28 @@ def test_q8_duplicate_probe_scanned_once_and_dead_slots_dropped():
         assert np.isinf(gd[r][3:]).all()
 
 
+@pytest.mark.parametrize("where", NAN_WHERE)
+def test_q8_plain_follows_the_reference_on_a_nan_distance(where):
+    """A NaN in a live slot's norm makes that row's distance NaN: the
+    query's candidates are emptied at that slot and refilled by later
+    slots only, as the reference's ``_extract_topk`` does (the Pallas
+    kernel in interpret mode, tiles of 8 queries; the port plans one query
+    a tile, in the same ascending cluster order)."""
+    arrays = q8_case(10, 8, 8, 12, 4, seed=22, dead=0.2, masked=0.1)
+    norm2, ids, cids, mask = arrays[2], arrays[4], arrays[5], arrays[6]
+    c = plant_nan(norm2, ids, cids, mask, where, q=1)
+    gd, gi = tq8.ivf_scan_q8_topk_plain(*_t(*arrays), k2=8)
+    jd, ji = jops.ivf_scan_q8_topk(*(jnp.asarray(a) for a in arrays),
+                                   k2=8, bq=8)
+    assert not torch.isnan(gd).any()
+    assert_candidates_match(gd, gi, jd, ji, tol=Q8_TOL)
+    kept = gi.numpy()[1]
+    kept = kept[kept >= 0]
+    assert np.isin(kept, ids[c + 1:]).all()
+    last = c == cids[1][mask[1] & (cids[1] >= 0)].max()
+    assert (kept.size == 0) == last and last == (where == "last")
+
+
 @pytest.mark.parametrize("b,p,bq,n,chunk", [(2, 4, 2, 8, 0), (48, 16, 8, 30, 0),
                                             (48, 16, 8, 30, 1),
                                             (48, 16, 8, 30, 5),
@@ -129,9 +152,8 @@ def test_kmeans_assign_plain_keeps_a_nan_distance_as_jax(nan_at):
     torch.argmin), and stays NaN in min_dist (jnp.maximum's clamp), on the
     Pallas kernel in interpret mode and on the reference's ops path alike.
     Sums: the reference folds them with a one-hot product, where 0 x NaN
-    spreads a NaN coordinate into every cluster's column; the port adds a
-    row into its own cluster only, so its NaN sums are a subset of the
-    reference's and every other sum is equal."""
+    spreads a NaN coordinate into every other cluster's column; the port
+    follows it, NaN for NaN and bit for bit elsewhere."""
     x, c = grid_points(300, 7, 5, seed=3)
     if nan_at in ("row", "both"):
         x[17, 2] = np.nan
@@ -147,15 +169,43 @@ def test_kmeans_assign_plain_keeps_a_nan_distance_as_jax(nan_at):
         np.testing.assert_array_equal(tmd.numpy(), np.asarray(wmd))
         np.testing.assert_array_equal(tc.numpy(),
                                       np.asarray(wc).astype(np.int32))
-        ws = np.asarray(ws)
-        assert not (np.isnan(ts.numpy()) & ~np.isnan(ws)).any()
-        keep = ~np.isnan(ws)
-        np.testing.assert_array_equal(ts.numpy()[keep], ws[keep])
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(ws))
     assert np.isnan(tmd.numpy()).any()
     if nan_at == "row":
         assert ta[17] == 0                 # every distance NaN: index 0
     else:
         assert (ta.numpy() == 4).sum() >= 299   # the NaN centroid wins
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "-inf", "inf_and_-inf",
+                                  "two_points"])
+def test_kmeans_assign_plain_sums_follow_the_one_hot_rule(kind):
+    """A non-finite coordinate in column d of a point outside cluster k
+    makes sums[k, d] NaN (the reference's onehot(a)^T @ x: 0 x inf and
+    0 x NaN are NaN); every other sum is cluster k's ordered sum.  Against
+    the Pallas kernel in interpret mode and the reference's ops path, NaN
+    for NaN and bit for bit elsewhere."""
+    x, c = grid_points(300, 7, 5, seed=4)
+    bad = {"nan": [(17, np.nan)], "inf": [(17, np.inf)],
+           "-inf": [(17, -np.inf)],
+           "inf_and_-inf": [(17, np.inf), (18, -np.inf)],
+           "two_points": [(17, np.nan), (250, np.inf)]}[kind]
+    for row, v in bad:
+        x[row, 2] = v
+    ta, tmd, ts, tc = tassign.kmeans_assign_update_plain(*_t(x, c))
+    ja, _, js, jc = j_assign(jnp.asarray(x), jnp.asarray(c), bn=128,
+                             interpret=True)
+    oa, _, osum, _ = jops.kmeans_assign_update(jnp.asarray(x),
+                                               jnp.asarray(c))
+    for wa, ws in ((ja, js), (oa, osum)):
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(wa))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int32))
+    ts = ts.numpy()
+    own = {int(ta[row]) for row, _ in bad}
+    others = [k for k in range(7) if k not in own]
+    assert np.isnan(ts[others, 2]).all()
+    assert np.isfinite(np.delete(ts, 2, axis=1)).all()
 
 
 @pytest.mark.parametrize("k,d,n_empty,int_counts", [(8, 16, 3, False),

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_port import (  # noqa: E402,F401
-    assert_candidates_match, f32_case, grid_points, torch_threads,
+    NAN_WHERE, assert_candidates_match, f32_case, grid_points, plant_nan,
+    torch_threads,
 )
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -74,6 +75,33 @@ def test_f32_topk_duplicate_probe_scanned_once_and_dead_slots_dropped():
     for r in range(1, 4):
         assert sorted(gi[r][gi[r] >= 0].tolist()) == [10, 12, 13]
         assert np.isinf(gd[r][3:]).all() and np.isfinite(gd[r][:3]).all()
+
+
+@pytest.mark.parametrize("where", NAN_WHERE)
+def test_f32_topk_plain_follows_the_reference_on_a_nan_distance(where):
+    """A NaN distance of a live row empties the query's candidates at that
+    slot: the reference's ``_extract_topk`` gets a NaN from ``jnp.min``,
+    emits (+inf, -1) k2 times and kills nothing.  Only the slots after it
+    (clusters above it in the plan) refill the buffer.  The plain version
+    against the Pallas kernel in interpret mode, then the rule itself."""
+    arrays = f32_case(10, 8, 8, 12, 4, seed=21, dead=0.2, masked=0.1)
+    clean = [a.copy() for a in arrays]
+    post, ids, cids, mask, _ = arrays
+    c = plant_nan(post, ids, cids, mask, where, q=1)
+    gd, gi = tscan.ivf_scan_topk_plain(*_t(*arrays), k2=8)
+    jd, ji = jops.ivf_scan_topk(*_j(*arrays), k2=8, bq=8)
+    assert not torch.isnan(gd).any()
+    assert_candidates_match(gd, gi, jd, ji, tol=F32_TOL)
+    gi = gi.numpy()
+    kept = gi[1][gi[1] >= 0]
+    assert np.isin(kept, ids[c + 1:]).all()           # clusters after c only
+    last = c == cids[1][mask[1] & (cids[1] >= 0)].max()
+    assert (kept.size == 0) == last and last == (where == "last")
+    if where == "one_query":                          # the tile's others
+        clean[1], clean[2], clean[3] = ids, cids, mask
+        _, ci = tscan.ivf_scan_topk_plain(*_t(*clean), k2=8)
+        others = [r for r in range(8) if r != 1]
+        np.testing.assert_array_equal(gi[others], ci.numpy()[others])
 
 
 @pytest.mark.parametrize("c,l,d,b,p,masked", [(10, 8, 12, 5, 4, 0.3),
