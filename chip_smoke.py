@@ -17,8 +17,10 @@ Phases, each of which raises on failure:
    distance (a NaN row, a NaN centroid) as their plain versions do; K2 bit
    for bit on grid inputs with its tiles cut at ragged N, K and D (37, 128,
    1024) and with a non-finite coordinate (the sums' one-hot rule, K23
-   too); B2 at one block a tile and at many, with one id in two chunks
-   and a query with every probe masked; K1 and B2 with a NaN distance in
+   too); K1 and B2 at one block a query (tile) and at many, with one id in
+   two chunks and a query with every probe masked; K1 also at k2 1, 24,
+   32, 33 and 256, at P = 256 probes (one more must raise) and bit-equal over two
+   launches; K1 and B2 with a NaN distance in
    a live row of the first, a middle or the last slot of a query's plan,
    or of a slot only one query of its tile probes (the query's candidates
    restart after that slot, as the reference's _extract_topk gives);
@@ -35,14 +37,18 @@ Phases, each of which raises on failure:
 4. serve: ``make_quantized_pipeline`` with the flash re-rank, warmup, then
    ``run_pipelined(depth=2)`` over 64 batches of 32 queries; recall@10
    against brute force on the card; K1's launches must equal the scan
-   dispatches;
+   dispatches; each batch's scan window split into host spans (stamps)
+   and device time (torch.profiler) on a ``[serve] scan window`` line;
 5. parity: a subset of those batches through the same pipeline on the CPU
    (plain versions) must give the same ids up to ties;
-6. kernel times at the main paths' shapes (CUDA events around a run of
-   launches), printed as one JSON line with each kernel's launches (summed
-   over every main-path run of phases 3-11), time, bound and plain time
-   (K1 and B2 timed alone on a prebuilt plan, beside their wrappers'
-   times, B2 with its block count and split into its two kernels; K2 at
+6. kernel times at the main paths' shapes, each two ways (CUDA events
+   around a run of launches as issued, ``ms``, and the same launches
+   queued behind a sleep kernel, ``device_ms``), printed as one JSON line
+   with each kernel's launches (summed over every main-path run of phases
+   3-11), times, bound and plain time (K1 through its wrapper, which
+   launches nothing but its two kernels, B2 alone on a prebuilt plan
+   beside its wrapper's time, both with their block counts and split into
+   their two kernels; K2 at
    the 1M reassignment with its per-kernel split from torch.profiler; K23
    on the 1M build's largest step, beside the build's own per-step times;
    B5 also at the shapes phase 10's unfused build launched it with);
@@ -165,6 +171,8 @@ def candidates_match(gd, gi, wd, wi, tol: float, what: str) -> float:
 
 
 def time_ms(fn, n: int = 20, warm: int = 3) -> float:
+    """ms a call of ``fn``: CUDA events around n calls as they are issued,
+    so a call shorter than its issue time reads the host's time."""
     import torch
 
     for _ in range(warm):
@@ -178,6 +186,35 @@ def time_ms(fn, n: int = 20, warm: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+SLEEP_CYCLES_PER_S = 1.98e9      # torch.cuda._sleep's unit: SM clock cycles
+                                 # (the H100 SXM's 1,980 MHz boost clock)
+
+
+def time_two_ways(fn, n: int, warm: int = 3) -> dict:
+    """Device ms a call of ``fn``: CUDA events around n calls, first as they
+    are issued ("events", :func:`time_ms`'s yardstick), then with the n
+    calls queued behind a sleep kernel that holds the stream for about
+    twice the host's time to issue them ("queued": the card's time alone,
+    as long as the calls do not wait for the card themselves)."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        fn()
+    host_s = (time.perf_counter() - t0) / max(warm, 1)
+    events = time_ms(fn, n, warm=0)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * n * host_s, 1.0) * SLEEP_CYCLES_PER_S))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return {"events": events, "queued": a.elapsed_time(b) / n}
 
 
 # --------------------------------------------------------------------------
@@ -280,17 +317,29 @@ def phase_device() -> dict:
 # --------------------------------------------------------------------------
 # phase 2: build the kernels and hold each against its plain version
 # --------------------------------------------------------------------------
-def check_k1(case: str, k2: int, *args) -> float:
+def check_k1(case: str, k2: int, *args, chunks=(None,)) -> float:
+    """K1 against its plain version at each block count a query of
+    ``chunks`` (None: the card's own count; "P": one a probe), each within
+    the kernel's limit."""
     import torch
 
     from repro_torch.kernels import ivf_scan_q8 as q8mod
 
-    gd, gi = q8mod.ivf_scan_q8_topk_cuda(*args, k2=k2)
     wd, wi = q8mod.ivf_scan_q8_topk_plain(*args, k2=k2)
-    torch.cuda.synchronize()
-    err = candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), Q8_TOL,
-                           f"K1 {case}")
-    log(f"[kernels] K1 {case}: ok max_abs_err={err:.3g}")
+    p = args[5].shape[1]
+    top = q8mod._max_chunks(p, k2)
+    err = 0.0
+    for n in chunks:
+        n = None if n is None else min(p if n == "P" else n, top)
+        gd, gi = q8mod.ivf_scan_q8_topk_cuda(*args, k2=k2, chunks=n)
+        torch.cuda.synchronize()
+        if bool(torch.isnan(gd).any()):
+            raise AssertionError(f"K1 {case}: NaN reached the candidates")
+        err = max(err, candidates_match(gd.cpu(), gi.cpu(), wd.cpu(),
+                                        wi.cpu(), Q8_TOL,
+                                        f"K1 {case} chunks={n}"))
+    log(f"[kernels] K1 {case}: ok at chunks {list(chunks)} "
+        f"max_abs_err={err:.3g}")
     return err
 
 
@@ -652,6 +701,8 @@ def k3_inputs(k, d, n_empty, *, seed, int_counts=False):
 
 def phase_kernels() -> dict:
     """Returns each kernel's largest error against its plain version."""
+    import torch
+
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda_lib
 
@@ -670,8 +721,8 @@ def phase_kernels() -> dict:
             "pairwise_l2": 0.0, "ivf_scan_clustermajor": 0.0,
             "ivf_scan_q8": 0.0, "kmeans_batched": 0.0}
 
-    def k1(case, k2, *shape, **kw):
-        e = check_k1(case, k2, *q8_inputs(*shape, **kw))
+    def k1(case, k2, *shape, chunks=(None, 1, 3, "P"), **kw):
+        e = check_k1(case, k2, *q8_inputs(*shape, **kw), chunks=chunks)
         errs["ivf_scan_q8_topk"] = max(errs["ivf_scan_q8_topk"], e)
 
     k1("main 512x128x128 B32 P16", 24, 512, 128, 128, 32, 16, seed=1,
@@ -681,14 +732,57 @@ def phase_kernels() -> dict:
     k1("k2 > live candidates", 200, 9, 16, 32, 5, 3, seed=3, dead=0.5,
        masked=0.5)
     k1("D=1024 L=64 k2=256", 256, 20, 64, 1024, 3, 4, seed=4, dead=0.1)
-    # a NaN distance of a live row empties the query's buffer at its slot
+    k1("main shape k2=1", 1, 512, 128, 128, 32, 16, seed=10, dead=0.05,
+       masked=0.2)
+    k1("main shape k2=32 (every register lane)", 32, 512, 128, 128, 32, 16,
+       seed=11, dead=0.05, masked=0.2)
+    k1("main shape k2=33 (shared-memory buffers)", 33, 512, 128, 128, 32,
+       16, seed=5, dead=0.05, masked=0.2)
+    k1("main shape k2=256", 256, 512, 128, 128, 32, 16, seed=6, dead=0.05,
+       masked=0.2)
+    k1("P=256 (the limit) with repeats", 24, 600, 32, 64, 8, 256, seed=7,
+       dead=0.1, masked=0.2)
+    # one id in a low and a high cluster that query 0 probes, so the copies
+    # land in different chunks; query 3 with every probe masked
+    from repro_torch.kernels import ivf_scan_q8 as q8m
+    args = list(q8_inputs(512, 128, 128, 32, 16, seed=8, dead=0.05,
+                          masked=0.1, device="cpu"))
+    ids, cids, mask = args[4], args[5], args[6]
+    cids[0, :2], mask[0, :2] = torch.tensor([2, 500]), True
+    ids[2, 5] = ids[500, 9] = 10_000_000
+    args[7][0] = args[3][2] + args[1][2, 0, 0] * args[0][2, 5].float()
+    mask[3] = False
+    args = [a.cuda() for a in args]
+    e = check_k1("dup id across chunks + masked query", 24, *args,
+                 chunks=(None, 1, 2, "P"))
+    errs["ivf_scan_q8_topk"] = max(errs["ivf_scan_q8_topk"], e)
+    gd, gi = q8m.ivf_scan_q8_topk_cuda(*args, k2=24, chunks=16)
+    again = q8m.ivf_scan_q8_topk_cuda(*args, k2=24, chunks=16)
+    torch.cuda.synchronize()
+    if int((gi[0] == 10_000_000).sum()) != 1:
+        raise AssertionError("K1: the id in two chunks is not there once")
+    if not (bool(torch.isinf(gd[3]).all()) and bool((gi[3] == -1).all())):
+        raise AssertionError("K1: the fully masked query has candidates")
+    if not (torch.equal(gd, again[0]) and torch.equal(gi, again[1])):
+        raise AssertionError("K1: two launches on the same inputs differ")
+    log("[kernels] K1 two launches bit-equal; the id in two chunks once; "
+        "the masked query empty")
+    # a NaN distance of a live row empties the query's buffer at its slot,
+    # in the first chunk or the last
     for where in NAN_WHERE:
         args = list(q8_inputs(64, 128, 128, 32, 16, seed=40, dead=0.05,
                               masked=0.1, device="cpu"))
         plant_nan(*(args[i].numpy() for i in (2, 4, 5, 6)), where, q=1)
         e = check_k1(f"NaN in a live row, {where} slot", 24,
-                     *[a.cuda() for a in args])
+                     *[a.cuda() for a in args], chunks=(None, 1, 3, "P"))
         errs["ivf_scan_q8_topk"] = max(errs["ivf_scan_q8_topk"], e)
+    over = q8_inputs(20, 8, 16, 3, q8m.MAX_P + 1, seed=9)
+    try:
+        q8m.ivf_scan_q8_topk_cuda(*over, k2=8)
+    except ValueError as exc:
+        log(f"[kernels] K1 P={q8m.MAX_P + 1} refused: {exc}")
+    else:
+        raise AssertionError(f"K1 took P={q8m.MAX_P + 1} probes")
 
     def k2(case, n, k, d, seed):
         e = check_k2(case, *kmeans_inputs(n, k, d, seed=seed))
@@ -1094,7 +1188,7 @@ def phase_serve(work: str, built: dict) -> dict:
            "mean_nprobe": float(nprobe.mean()),
            "k1_launches": launches["ivf_scan_q8_topk"],
            "n_batches": len(batches), "warm": warm}
-    res.update(profile_window(pipe, batches[:16]))
+    res.update(scan_window_split(pipe, batches[:16]))
     log("[serve] " + " ".join(f"{k}={v:.4g}" if isinstance(v, float)
                               else f"{k}={v}" for k, v in res.items()))
     if recall < 0.95 * ceiling:
@@ -1135,9 +1229,101 @@ def profile_window(pipe, batches) -> dict:
                        f"{len(batches)} pipelined batches")
 
 
-def profile_run(run, what: str) -> dict:
+def scan_window_split(pipe, batches) -> dict:
+    """:func:`profile_window` over phase 4's q8 pipeline, with each batch's
+    scan window (``scan_dispatch`` to ``scan_done``) split on the host and
+    on the card.  Host spans, from stamps this function puts around the
+    pipeline's calls for the window's length: dispatch to K1's wrapper
+    (the gather's join, the stream waits, the mask's copy), the wrapper
+    (checks, allocations, K1's two launches), ``merge_candidate_topk``'s
+    issue, the result copies' issue, the run loop's other work until the
+    batch's harvest (under depth 2: the next batch's plan, prefetch and
+    dispatch), and the harvest's wait for the scan.  Device ms a batch,
+    from the trace: K1's scan kernel, its merge kernel, and the kernels
+    that ``merge_candidate_topk`` launches (-1 where the trace shows none).
+    Logged on a ``[serve] scan window`` line; returns the busy share and
+    the split."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import pipeline as pl
+
+    stamps = {k: [] for k in ("k1_in", "k1_out", "merge_out", "dispatch_out",
+                              "harvest_in")}
+    k1, merge = kops.ivf_scan_q8_topk, pl.merge_candidate_topk
+    dispatch, harvest = pipe.dispatch, pipe.harvest
+
+    def k1_stamped(*a, **kw):
+        stamps["k1_in"].append(time.perf_counter())
+        out = k1(*a, **kw)
+        stamps["k1_out"].append(time.perf_counter())
+        return out
+
+    def merge_stamped(*a, **kw):
+        with torch.profiler.record_function("merge_candidate_topk"):
+            out = merge(*a, **kw)
+        stamps["merge_out"].append(time.perf_counter())
+        return out
+
+    def dispatch_stamped(*a, **kw):
+        out = dispatch(*a, **kw)
+        stamps["dispatch_out"].append(time.perf_counter())
+        return out
+
+    def harvest_stamped(*a, **kw):
+        stamps["harvest_in"].append(time.perf_counter())
+        return harvest(*a, **kw)
+
+    out = []
+    device = {}
+
+    def inspect(prof):
+        n = len(batches)
+        for part in K1_PARTS:
+            device[part] = sum(
+                getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages() if part in e.key) / 1e3 / n
+        merged = [getattr(e, "device_time_total", 0.0) for e in prof.events()
+                  if e.name == "merge_candidate_topk"
+                  and not str(getattr(e, "device_type", "")).endswith("CUDA")]
+        device["merge_candidate_topk"] = sum(merged) / 1e3 / n \
+            if sum(merged) > 0 else -1.0
+        return {}
+
+    kops.ivf_scan_q8_topk, pl.merge_candidate_topk = k1_stamped, merge_stamped
+    pipe.dispatch, pipe.harvest = dispatch_stamped, harvest_stamped
+    try:
+        res = profile_run(lambda: out.extend(pipe.run_pipelined(batches,
+                                                                depth=2)),
+                          f"{len(batches)} pipelined batches", inspect)
+    finally:
+        kops.ivf_scan_q8_topk, pl.merge_candidate_topk = k1, merge
+        del pipe.dispatch, pipe.harvest
+    times = [o.times for o in out]
+    counts = {k: len(v) for k, v in stamps.items()}
+    if any(c != len(times) for c in counts.values()):
+        raise AssertionError(f"scan window stamps {counts} for "
+                             f"{len(times)} batches")
+    marks = np.array([[t.scan_dispatch for t in times], stamps["k1_in"],
+                      stamps["k1_out"], stamps["merge_out"],
+                      stamps["dispatch_out"], stamps["harvest_in"],
+                      [t.scan_done for t in times]])
+    spans = np.diff(marks, axis=0).mean(axis=1) * 1e3
+    host = dict(zip(("dispatch_to_k1", "k1_wrapper", "merge_issue",
+                     "copies_issue", "until_harvest", "harvest_wait"),
+                    (float(v) for v in spans)))
+    host["window"] = float((marks[-1] - marks[0]).mean() * 1e3)
+    split = {"scan_window_host_ms": host, "scan_window_device_ms": device}
+    log(f"[serve] scan window a batch over {len(times)} batches (host ms, "
+        f"stamps): {host}; device ms a batch (torch.profiler): {device}")
+    return {**res, **split}
+
+
+def profile_run(run, what: str, inspect=None) -> dict:
     """Device busy share and the top kernels by device time over one call
-    of ``run``, from torch.profiler (CUDA activity)."""
+    of ``run``, from torch.profiler (CUDA activity); ``inspect(prof)``, when
+    given, adds its dict to the result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1152,21 +1338,26 @@ def profile_run(run, what: str) -> dict:
     if busy < 0:
         log("[profile] no device activity recorded: busy share not measured")
         return {"device_busy": -1.0}
-    top = sorted(prof.key_averages(),
+    top = sorted((k for k in prof.key_averages()
+                  if not getattr(k, "is_user_annotation", False)),
                  key=lambda k: -getattr(k, "self_device_time_total", 0.0))
     log(f"[profile] top device time over {what} "
         f"({wall_us / 1e3:.1f} ms wall): " + "; ".join(
             f"{k.key[:60]} {getattr(k, 'self_device_time_total', 0.0) / 1e3:.3f} ms"
             for k in top[:8]))
-    return {"device_busy": busy / wall_us}
+    return {"device_busy": busy / wall_us,
+            **(inspect(prof) if inspect else {})}
 
 
 def device_busy_us(prof) -> float:
     """Microseconds in which at least one device activity of the profile
-    ran (the union of their intervals); -1 when none was recorded."""
+    ran (the union of their intervals); -1 when none was recorded.  A
+    ``record_function`` range also shows on the device's timeline, from
+    its first kernel to its last; it is not an activity and is skipped."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         return -1.0
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -1882,23 +2073,29 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     from repro_torch.kernels import ivf_scan_q8 as q8m
     from repro_torch.kernels import kmeans_assign as am
     from repro_torch.kernels import kmeans_mstep as mm
-    from repro_torch.kernels.ivf_scan import plan_tile_probes
 
     rows = []
     pipe = served["pipe"]
-    # K1: one real batch of the serving run (its plan and streamed union);
-    # the kernel alone on a prebuilt plan, and the wrapper (plan included)
+    # K1: one real batch of the serving run (its plan and streamed union)
+    # through the wrapper, which builds no plan and issues nothing on the
+    # card but K1's two kernels
     queries, topk = served["batches"][0]
     plan = pipe.plan(queries, topk)
     fetched = pipe._gather(plan)
     pmask = torch.from_numpy(plan.pmask).cuda()
     args = (*fetched.tensors(), pmask, plan.queries_dev)
     k2 = _auto_ncand(pipe.cfg.k)
-    tc1, qs1 = plan_tile_probes(fetched.remap, pmask, 1, fetched.q8.shape[0])
-    qs1 = qs1.reshape(fetched.remap.shape)
-    ms = time_ms(lambda: q8m.ivf_scan_q8_topk_planned(
-        *fetched.tensors()[:5], tc1, qs1, plan.queries_dev, k2=k2), n=200)
-    wrapper = time_ms(lambda: q8m.ivf_scan_q8_topk_cuda(*args, k2=k2), n=200)
+    b, p = pmask.shape
+    chunks = q8m.k1_chunks(b, p, k2, pmask.device)
+    t = time_two_ways(lambda: q8m.ivf_scan_q8_topk_cuda(*args, k2=k2), n=200)
+    one = time_two_ways(lambda: q8m.ivf_scan_q8_topk_cuda(
+        *args, k2=k2, chunks=1), n=200)
+    split = kernel_split_ms(lambda: q8m.ivf_scan_q8_topk_cuda(*args, k2=k2),
+                            K1_PARTS, n=20)
+    log(f"[times] K1 on one phase-4 batch: {b} queries x {chunks} chunks = "
+        f"{b * chunks} blocks, {t['events']:.4f} ms by events, "
+        f"{t['queued']:.4f} ms queued (ms a launch by kernel: {split}); one "
+        f"block a query {one['events']:.4f} / {one['queued']:.4f} ms")
     plain = time_ms(lambda: q8m.ivf_scan_q8_topk_plain(*args, k2=k2), n=20)
     _, l, d = fetched.q8.shape
     remap = fetched.remap.cpu().numpy()
@@ -1906,25 +2103,27 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     qi, pi = np.nonzero(live)
     pairs = len(set(zip(qi.tolist(), remap[qi, pi].tolist())))
     used = np.unique(remap[live]).size
-    b = plan.queries_dev.shape[0]
     nbytes = used * (l * d + 8 * l + 4 + 4 * d) + b * d * 4 \
         + plan.pmask.size * 5 + b * k2 * 8
     flops = pairs * (2 * l * d + 4 * l + 3 * d)
     rows.append(_row("ivf_scan_q8_topk", "src/repro_torch/csrc/ivf_scan_q8.cu",
                      "src/repro/kernels/ivf_scan_q8.py:174",
                      kernel_errs["ivf_scan_q8_topk"],
-                     ms, plain, nbytes, flops,
+                     t["events"], plain, nbytes, flops,
                      "no single PyTorch call computes a unique-by-id top-k2 "
                      "over int8 residual codes",
-                     f"B={b} P={plan.pmask.shape[1]} R={fetched.q8.shape[0]} "
+                     f"B={b} P={p} R={fetched.q8.shape[0]} "
                      f"used_rows={used} L={l} D={d} k2={k2}",
-                     wrapper_ms=wrapper))
+                     device_ms=t["queued"], wrapper_ms=t["events"],
+                     blocks=b * chunks, chunks=chunks, split_ms=split,
+                     one_block_a_query_ms=one))
     # K2: the build's largest call, all points against the final centroids
     x = torch.from_numpy(built["x"]).cuda()
     cents = built["index"].centroids.contiguous()
     n, d = x.shape
     k = cents.shape[0]
-    ms = time_ms(lambda: am.kmeans_assign_update_cuda(x, cents), n=5, warm=1)
+    t = time_two_ways(lambda: am.kmeans_assign_update_cuda(x, cents), n=5,
+                      warm=1)
     plain = time_ms(lambda: am.kmeans_assign_update_plain(x, cents), n=3,
                     warm=1)
     split = kernel_split_ms(lambda: am.kmeans_assign_update_cuda(x, cents),
@@ -1939,25 +2138,29 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
     rows.append(_row("kmeans_assign_update",
                      "src/repro_torch/csrc/kmeans_assign.cu",
                      "src/repro/kernels/kmeans_assign.py:108",
-                     kernel_errs["kmeans_assign_update"], ms, plain, nbytes,
-                     2 * n * k * d,
+                     kernel_errs["kmeans_assign_update"], t["events"], plain,
+                     nbytes, 2 * n * k * d,
                      "no single PyTorch call fuses the argmin with the "
                      "per-cluster sums and counts",
                      f"N={n} K={k} D={d} (enforce_size_bound)",
-                     splitter_shape_ms=small, split_ms=split))
+                     device_ms=t["queued"], splitter_shape_ms=small,
+                     split_ms=split))
     # K3: the splitter's M-step before K23, K = 8 centroids of D = 128
     sums, counts, reseed = k3_inputs(8, 128, 2, seed=22)
-    ms = time_ms(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed), n=200)
+    t = time_two_ways(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed),
+                      n=200)
     plain = time_ms(lambda: mm.kmeans_mstep_plain(sums, counts, reseed),
                     n=200)
     n_empty = int((counts <= 0).sum())
     nbytes = 8 * 128 * 4 * 2 + 8 * 4 + n_empty * 128 * 4
     rows.append(_row("kmeans_mstep", "src/repro_torch/csrc/kmeans_mstep.cu",
                      "src/repro/kernels/kmeans_mstep.py:90",
-                     kernel_errs["kmeans_mstep"], ms, plain, nbytes, 8 * 128,
+                     kernel_errs["kmeans_mstep"], t["events"], plain, nbytes,
+                     8 * 128,
                      "no single PyTorch call divides by the counts and "
                      "reseeds the empty clusters by rank",
-                     "K=8 D=128 (the splitter's shape before K23)"))
+                     "K=8 D=128 (the splitter's shape before K23)",
+                     device_ms=t["queued"]))
     rows.append(k23_row(built, kernel_errs))
     rows.append(b2_row(streamed, resident, kernel_errs))
     rows.append(b6a_row(resident, kernel_errs))
@@ -1983,6 +2186,8 @@ K2_PARTS = ("row_norms_kernel", "assign_kernel", "segment_hist_kernel",
 
 # B2's two kernels: the scan of each (tile, chunk) and the merge
 B2_PARTS = ("f32_topk_kernel", "f32_topk_merge_kernel")
+# K1's two kernels: the scan of each (query, chunk) and the same merge
+K1_PARTS = ("q8_topk_chunk_kernel", "f32_topk_merge_kernel")
 
 
 def kernel_split_ms(run, parts, n: int) -> dict:
@@ -2049,8 +2254,8 @@ def k23_row(built: dict, kernel_errs: dict) -> dict:
     evs = [run() for _ in range(5)]
     torch.cuda.synchronize()
     ms = sum(a.elapsed_time(b) for a, b in evs) / len(evs)
-    wrapper = time_ms(lambda: kb.kmeans_batched_cuda(x, pts, offs, ks, init,
-                                                     it), n=5, warm=1)
+    wrapper = time_two_ways(lambda: kb.kmeans_batched_cuda(
+        x, pts, offs, ks, init, it), n=5, warm=1)
     plain = time_ms(lambda: kb.kmeans_batched_plain(x, pts, offs, ks, init,
                                                     it), n=1, warm=1)
     nbytes = t_n * d * 4 + t_n * 4 + (2 * first + 1) * 4 + first * 64 \
@@ -2064,7 +2269,9 @@ def k23_row(built: dict, kernel_errs: dict) -> dict:
                 "no single PyTorch call runs Lloyd iterations over many "
                 "sub-problems",
                 f"first step of group 0: S={first} N={per} each, k={k}, "
-                f"D={d}, iters={it}", wrapper_ms=wrapper,
+                f"D={d}, iters={it}", device_ms=ms,
+                wrapper_ms=wrapper["events"],
+                wrapper_queued_ms=wrapper["queued"],
                 build_steps=split["steps"],
                 build_ms_per_step=split["k23_ms_mean"],
                 build_ms_total=split["k23_ms_total"],
@@ -2101,8 +2308,9 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
     pc, pm, pq = scan._pad_tile(remap, pmask, plan.queries_dev, scan.BQ)
     tc, qs = scan.plan_tile_probes(pc, pm, scan.BQ, post.shape[0])
     chunks = scan.b2_chunks(tc.shape[0], tc.shape[1], k2, tc.device)
-    ms = time_ms(lambda: scan.ivf_scan_topk_planned(post, ids, tc, qs, pq,
-                                                    k2=k2), n=100)
+    t = time_two_ways(lambda: scan.ivf_scan_topk_planned(
+        post, ids, tc, qs, pq, k2=k2), n=100)
+    ms = t["events"]
     one_block = time_ms(lambda: scan.ivf_scan_topk_planned(
         post, ids, tc, qs, pq, k2=k2, chunks=1), n=100)
     split = kernel_split_ms(lambda: scan.ivf_scan_topk_planned(
@@ -2138,7 +2346,8 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
                 "the probed posting rows",
                 f"phase-8 batch: B={b} P={pmask.shape[1]} R={post.shape[0]} "
                 f"used_rows={used} pairs={pairs} L={l} D={d} k2={k2} bq=8",
-                wrapper_ms=wrapper, blocks=tc.shape[0] * chunks,
+                device_ms=t["queued"], wrapper_ms=wrapper,
+                blocks=tc.shape[0] * chunks,
                 tiles=tc.shape[0], chunks=chunks, split_ms=split,
                 one_block_a_tile_ms=one_block,
                 resident={"ms": r_ms, "wrapper_ms": r_wrapper,
@@ -2154,7 +2363,8 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
 
     cids, mask, qd = resident["plan0"]
     post, _ = resident["index"]
-    ms = time_ms(lambda: scan.ivf_scan_cuda(post, cids, mask, qd), n=100)
+    t = time_two_ways(lambda: scan.ivf_scan_cuda(post, cids, mask, qd),
+                      n=100)
     plain = time_ms(lambda: scan.ivf_scan_plain(post, cids, mask, qd), n=10)
     _, l, d = post.shape
     b, p = cids.shape
@@ -2164,11 +2374,11 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
     flops = (live + uniq) * l * 2 * d
     return _row("ivf_scan", "src/repro_torch/csrc/ivf_scan.cu",
                 "src/repro/kernels/ivf_scan.py:111",
-                kernel_errs["ivf_scan"], ms, plain, nbytes, flops,
+                kernel_errs["ivf_scan"], t["events"], plain, nbytes, flops,
                 "no single PyTorch call gathers each query's probed blocks "
                 "and computes their distances",
                 f"resident batch: B={b} P={p} C={post.shape[0]} live={live} "
-                f"unique_clusters={uniq} L={l} D={d}")
+                f"unique_clusters={uniq} L={l} D={d}", device_ms=t["queued"])
 
 
 # kernels that no main path of the port runs, so their rows must count no
@@ -2191,8 +2401,8 @@ def b6b_row(resident: dict, kernel_errs: dict) -> dict:
     qsel = ((cids[None, :, :] == active[:, None, None])
             & live[None]).any(dim=-1).contiguous()           # (A, B)
     qd = qd.contiguous()
-    ms = time_ms(lambda: scan.ivf_scan_clustermajor_cuda(post, active, qsel,
-                                                         qd), n=100)
+    t = time_two_ways(lambda: scan.ivf_scan_clustermajor_cuda(
+        post, active, qsel, qd), n=100)
     plain = time_ms(lambda: scan.ivf_scan_clustermajor_plain(
         post, active, qsel, qd), n=10)
     a_n = active.numel()
@@ -2204,11 +2414,11 @@ def b6b_row(resident: dict, kernel_errs: dict) -> dict:
     return _row("ivf_scan_clustermajor",
                 "src/repro_torch/csrc/ivf_scan_clustermajor.cu",
                 "src/repro/kernels/ivf_scan.py:160",
-                kernel_errs["ivf_scan_clustermajor"], ms, plain, nbytes,
-                flops, "no single PyTorch call gathers the active clusters "
-                "and masks the unselected (cluster, query) pairs",
+                kernel_errs["ivf_scan_clustermajor"], t["events"], plain,
+                nbytes, flops, "no single PyTorch call gathers the active "
+                "clusters and masks the unselected (cluster, query) pairs",
                 f"resident batch union: A={a_n} L={l} D={d} B={b} "
-                f"selected_pairs={int(qsel.sum())}")
+                f"selected_pairs={int(qsel.sum())}", device_ms=t["queued"])
 
 
 def b7_row(resident: dict, kernel_errs: dict) -> dict:
@@ -2220,7 +2430,7 @@ def b7_row(resident: dict, kernel_errs: dict) -> dict:
     qi = resident["qindex"]
     args = (qi.q8, qi.qscale, qi.qnorm2, qi.centroids, cids.contiguous(),
             mask.contiguous(), qd.contiguous())
-    ms = time_ms(lambda: q8m.ivf_scan_q8_cuda(*args), n=100)
+    t = time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*args), n=100)
     plain = time_ms(lambda: q8m.ivf_scan_q8_plain(*args), n=10)
     _, l, d = qi.q8.shape
     b, p = cids.shape
@@ -2231,11 +2441,11 @@ def b7_row(resident: dict, kernel_errs: dict) -> dict:
     flops = live * (l * (2 * d + 3) + 3 * d)
     return _row("ivf_scan_q8", "src/repro_torch/csrc/ivf_scan_q8_legacy.cu",
                 "src/repro/kernels/ivf_scan_q8.py:83",
-                kernel_errs["ivf_scan_q8"], ms, plain, nbytes, flops,
-                "no single PyTorch call gathers each query's probed int8 "
-                "blocks and computes the residual-form distances",
+                kernel_errs["ivf_scan_q8"], t["events"], plain, nbytes,
+                flops, "no single PyTorch call gathers each query's probed "
+                "int8 blocks and computes the residual-form distances",
                 f"resident batch: B={b} P={p} C={qi.q8.shape[0]} live={live} "
-                f"unique_clusters={uniq} L={l} D={d}")
+                f"unique_clusters={uniq} L={l} D={d}", device_ms=t["queued"])
 
 
 def b5_row(built: dict, kernel_errs: dict) -> dict:
@@ -2247,7 +2457,7 @@ def b5_row(built: dict, kernel_errs: dict) -> dict:
 
     a = torch.from_numpy(built["x"][:16384]).cuda()
     b = built["index"].centroids.contiguous()
-    ms = time_ms(lambda: pw.pairwise_l2_cuda(a, b), n=10, warm=2)
+    t = time_two_ways(lambda: pw.pairwise_l2_cuda(a, b), n=10, warm=2)
     plain = time_ms(lambda: pw.pairwise_l2_plain(a, b), n=10, warm=2)
     library = time_ms(lambda: torch.cdist(a, b), n=10, warm=2)
     n, d = a.shape
@@ -2255,11 +2465,13 @@ def b5_row(built: dict, kernel_errs: dict) -> dict:
     return _row("pairwise_l2", "src/repro_torch/csrc/pairwise_l2.cu",
                 "src/repro/kernels/pairwise_l2.py:71",
                 kernel_errs["pairwise_l2"],
-                ms, plain, (n + m) * d * 4 + n * m * 4, 2 * n * m * d,
+                t["events"], plain, (n + m) * d * 4 + n * m * 4,
+                2 * n * m * d,
                 "torch.cdist(a, b): the square root of the same quantity "
                 "(Euclidean, not squared), timed as the yardstick",
                 f"N={n} M={m} D={d} (one build chunk vs the final centroids)",
-                library_ms=library, unfused_build=b5_unfused_shapes())
+                library_ms=library, device_ms=t["queued"],
+                unfused_build=b5_unfused_shapes())
 
 
 def b5_bound_ms(n: int, m: int, d: int) -> float:

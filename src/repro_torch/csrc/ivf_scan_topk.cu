@@ -45,8 +45,9 @@
 // order, keeping each id's first (smallest) entry.  The order depends only
 // on the data, never on which block finished first.  The result is exact:
 // an id of the global top-k2 is in the top-k2 of the chunk that holds its
-// minimum.
-#include "common.cuh"
+// minimum.  The merge kernel and the register buffer live in
+// topk_partials.cuh, which K1 (ivf_scan_q8.cu) shares.
+#include "topk_partials.cuh"
 
 namespace {
 
@@ -54,86 +55,12 @@ constexpr int BQ = 8;                  // queries per tile (one warp each)
 constexpr int QPG = 4;                 // queries per thread in the dot loop
 constexpr int kThreads = 32 * BQ;
 constexpr int kBufFloats = 64 * 132;   // one row buffer: LC * (D + 4) <= this
-constexpr int kHeads = 4;              // chunks per lane in the merge
-constexpr int kMaxChunks = 32 * kHeads;
-constexpr int kMergeThreads = 128;
-constexpr int kMaxPartials = 12 * 1024;  // chunks x k2 staged by the merge
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int row_stride(int D) { return D + 4; }
 
 __host__ __device__ inline int chunk_rows(int L, int D) {
   const int lc = kBufFloats / row_stride(D);
   return lc < 1 ? 1 : (lc < L ? lc : L);
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* smem, const T* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Worst (largest distance) buffer slot; ties go to the highest slot index.
-__device__ __forceinline__ void find_worst(const float* bd, int k2, int lane,
-                                           float& worst, int& worst_pos) {
-  float v = -1.0f;
-  int p = -1;
-  for (int j = lane; j < k2; j += 32) {
-    float x = bd[j];
-    if (x > v || (x == v && j > p)) { v = x; p = j; }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(kFull, v, off);
-    int op = __shfl_xor_sync(kFull, p, off);
-    if (ov > v || (ov == v && op > p)) { v = ov; p = op; }
-  }
-  worst = v;
-  worst_pos = p;
-}
-
-// Insert (dd, id), dd below the buffer's worst, into a warp's sorted
-// register buffer: lane j < k2 holds the j-th smallest entry, empty entries
-// are (+inf, -1), unique by id with the per-id minimum.  An entry of the
-// same id at lane h is dropped (unless it is not above dd: then dd is), else
-// the worst one; dd goes in after the entries not above it, and the entries
-// between move up a lane.  Two ballots and a shift, no search of the buffer.
-__device__ __forceinline__ void reg_insert(float dd, int id, int k2, int lane,
-                                           float& rd, int& ri, float& worst) {
-  const unsigned hm = __ballot_sync(kFull, lane < k2 && ri == id);
-  int h = k2 - 1;
-  if (hm) {
-    h = __ffs(hm) - 1;
-    if (!(dd < __shfl_sync(kFull, rd, h))) return;
-  }
-  const int pos = __popc(__ballot_sync(kFull, lane < k2 && rd <= dd));
-  const float ud = __shfl_up_sync(kFull, rd, 1);
-  const int ui = __shfl_up_sync(kFull, ri, 1);
-  if (lane == pos) {
-    rd = dd;
-    ri = id;
-  } else if (lane > pos && lane <= h) {
-    rd = ud;
-    ri = ui;
-  }
-  worst = __shfl_sync(kFull, rd, k2 - 1);
 }
 
 // Does any query of tile t probe slot s?  (8 ints, two 16-byte loads.)
@@ -367,113 +294,6 @@ f32_topk_kernel(const float* __restrict__ post, const int* __restrict__ ids,
   if (n_chunks > 1 && lane == 0) part_nan[gq * n_chunks + ch] = wiped ? 1 : 0;
 }
 
-// Lexicographic (distance, chunk) order of the merge's heads.
-__device__ __forceinline__ bool head_before(float d1, int c1, float d2,
-                                            int c2) {
-  return d1 < d2 || (d1 == d2 && c1 < c2);
-}
-
-// One block per query: stage its partials from the chunks it keeps (the
-// last one that wiped and those after it) in shared memory, then one warp
-// merges them into the top-k2, unique by id.  Lane l owns chunks c0 + l,
-// c0 + l + 32, ...; each round the warp takes the least head in (distance,
-// chunk) order, emits it unless its id was emitted already (the first,
-// smallest, entry of an id wins), and its owner advances.
-__global__ void __launch_bounds__(kMergeThreads)
-f32_topk_merge_kernel(const float* __restrict__ part_d,
-                      const int* __restrict__ part_i,
-                      const int* __restrict__ part_nan,
-                      float* __restrict__ out_d, int* __restrict__ out_i,
-                      int k2, int n_chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = k2 | 1;                  // odd stride: lanes hit all banks
-  float* sd = reinterpret_cast<float*>(smem);          // n_chunks x ld
-  int* si = reinterpret_cast<int*>(sd + n_chunks * ld);  // n_chunks x ld
-  int* ob_i = si + n_chunks * ld;                      // k2
-  float* ob_d = reinterpret_cast<float*>(ob_i + k2);   // k2
-  __shared__ int first;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t gq = blockIdx.x;
-
-  if (tid < 32) {
-    int c0 = 0;
-    for (int c = lane; c < n_chunks; c += 32)
-      if (part_nan[gq * n_chunks + c]) c0 = c;
-    for (int off = 16; off > 0; off >>= 1)
-      c0 = max(c0, __shfl_xor_sync(kFull, c0, off));
-    if (lane == 0) first = c0;
-  }
-  __syncthreads();
-  const int c0 = first;
-  const size_t base = (gq * n_chunks + c0) * k2;
-  for (int e = tid; e < (n_chunks - c0) * k2; e += kMergeThreads) {
-    const int c = e / k2, p = e - (e / k2) * k2;  // all in flight at once
-    cp_async4(sd + c * ld + p, part_d + base + e);
-    cp_async4(si + c * ld + p, part_i + base + e);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (tid >= 32) return;
-
-  int pos[kHeads];
-#pragma unroll
-  for (int m = 0; m < kHeads; ++m) pos[m] = 0;
-  auto head = [&](int m, float& d, int& id) {
-    const int c = lane + 32 * m;         // relative to c0
-    const bool ok = c0 + c < n_chunks && pos[m] < k2;
-    d = ok ? sd[c * ld + pos[m]] : CUDART_INF_F;
-    id = ok ? si[c * ld + pos[m]] : -1;
-  };
-  int n_out = 0;
-  while (n_out < k2) {
-    float bd = CUDART_INF_F;
-    int bc = 0x7fffffff, bid = -1;
-#pragma unroll
-    for (int m = 0; m < kHeads; ++m) {
-      float d;
-      int id;
-      head(m, d, id);
-      const int c = lane + 32 * m;
-      if (d < CUDART_INF_F && head_before(d, c, bd, bc)) {
-        bd = d;
-        bc = c;
-        bid = id;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFull, bd, off);
-      const int oc = __shfl_xor_sync(kFull, bc, off);
-      const int oid = __shfl_xor_sync(kFull, bid, off);
-      if (head_before(od, oc, bd, bc)) {
-        bd = od;
-        bc = oc;
-        bid = oid;
-      }
-    }
-    if (!(bd < CUDART_INF_F)) break;     // every partial is exhausted
-    bool dup = false;
-    for (int j = lane; j < n_out; j += 32) dup |= ob_i[j] == bid;
-    if (!__any_sync(kFull, dup)) {
-      if (lane == 0) {
-        ob_d[n_out] = bd;
-        ob_i[n_out] = bid;
-      }
-      ++n_out;
-    }
-    if ((bc & 31) == lane) {             // the owner of chunk bc advances
-#pragma unroll
-      for (int m = 0; m < kHeads; ++m) pos[m] += m == (bc >> 5);
-    }
-    __syncwarp();
-  }
-  for (int j = lane; j < k2; j += 32) {
-    out_d[gq * k2 + j] = j < n_out ? ob_d[j] : CUDART_INF_F;
-    out_i[gq * k2 + j] = j < n_out ? ob_i[j] : -1;
-  }
-}
-
 }  // namespace
 
 extern "C" size_t ivf_scan_topk_smem_bytes(int L, int D, int k2) {
@@ -510,15 +330,9 @@ extern "C" int ivf_scan_topk_launch(const void* post, const void* ids,
       (const int*)qsel, (const float*)queries, (float*)out_d, (int*)out_i,
       (float*)part_d, (int*)part_i, (int*)part_nan, S, L, D, k2, n_chunks);
   REPRO_RETURN_IF_ERROR();
-  if (n_chunks > 1) {
-    const size_t msmem = ((size_t)2 * n_chunks * (k2 | 1) + 2 * k2) * 4;
-    cudaFuncSetAttribute(f32_topk_merge_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)msmem);
-    REPRO_RETURN_IF_ERROR();
-    f32_topk_merge_kernel<<<n_tiles * BQ, kMergeThreads, msmem, st>>>(
-        (const float*)part_d, (const int*)part_i, (const int*)part_nan,
-        (float*)out_d, (int*)out_i, k2, n_chunks);
-  }
+  if (n_chunks > 1)
+    return launch_topk_merge((const float*)part_d, (const int*)part_i,
+                             (const int*)part_nan, (float*)out_d,
+                             (int*)out_i, n_tiles * BQ, k2, n_chunks, st);
   return (int)cudaGetLastError();
 }

@@ -38,8 +38,9 @@ KERNELS = ("ivf_scan_q8_topk", "kmeans_assign_update", "kmeans_mstep",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ivf_scan_q8_topk_launch": [_P] * 10 + [_I] * 5 + [_P],
+    "ivf_scan_q8_topk_launch": [_P] * 13 + [_I] * 7 + [_P],
     "ivf_scan_q8_topk_smem_bytes": [_I, _I, _I],
+    "ivf_scan_q8_topk_max_chunks": [_I, _I],
     "kmeans_assign_update_launch": [_P] * 13 + [_I] * 4 + [_P],
     "kmeans_mstep_launch": [_P] * 5 + [_I] * 2 + [_P],
     "ivf_scan_topk_launch": [_P] * 10 + [_I] * 6 + [_P],

@@ -213,15 +213,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def b2_chunks(n_tiles: int, s_len: int, k2: int, dev) -> int:
-    """How many blocks B2 gives each tile: about four for every SM of the
-    card, within the kernel's own limit (``ivf_scan_topk_max_chunks``: at
-    least one slot a block, and as many partials as its merge stages)."""
+def blocks_per_unit(n_units: int, top: int, dev) -> int:
+    """How many blocks a fused scan gives each of its ``n_units`` tiles or
+    queries: about four for every SM of the card, at least one and at most
+    ``top`` (the kernel's own limit)."""
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    want = -(-4 * _sm_count(index) // max(n_tiles, 1))
-    top = cuda_lib.library().ivf_scan_topk_max_chunks(s_len, k2)
+    want = -(-4 * _sm_count(index) // max(n_units, 1))
     return max(1, min(want, top))
+
+
+def b2_chunks(n_tiles: int, s_len: int, k2: int, dev) -> int:
+    """How many blocks B2 gives each tile (:func:`blocks_per_unit`), within
+    ``ivf_scan_topk_max_chunks``: at least one slot a block, and as many
+    partials as its merge stages."""
+    return blocks_per_unit(
+        n_tiles, cuda_lib.library().ivf_scan_topk_max_chunks(s_len, k2), dev)
 
 
 def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,

@@ -51,6 +51,93 @@ def test_q8_kernel_matches_plain(cuda, case):
     assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-3)
 
 
+def _k1_special_case(kind):
+    """K1 inputs for one edge of its split plan: "dup_id" gives one id to a
+    row of a low and of a high cluster that query 0 probes, so the two
+    copies land in different chunks; "masked" masks every probe of query 3;
+    "p_limit" gives every query the most probes the kernel takes (256, with
+    repeats); "k2_1", "k2_24", "k2_32", "k2_33" and "k2_256" ask for
+    candidates in the register buffer (one, some, all its lanes), just
+    above it and at the limit."""
+    if kind == "p_limit":
+        return q8_case(300, 16, 32, 5, 256, seed=50, dead=0.1,
+                       masked=0.2), 24
+    if kind.startswith("k2_"):
+        return q8_case(60, 32, 64, 9, 16, seed=51, dead=0.1,
+                       masked=0.1), int(kind[3:])
+    arrays = list(q8_case(40, 32, 64, 16, 8, seed=52, dead=0.1, masked=0.1))
+    q8, scale, norm2, cents, ids, cids, mask, q = arrays
+    if kind == "dup_id":
+        cids[0, :2], mask[0, :2] = (1, 38), True
+        ids[38, 5] = ids[1, 7] = 123_456
+        q[0] = cents[1] + scale[1, 0, 0] * q8[1, 7]   # on the nearer copy
+    else:
+        mask[3] = False
+    return arrays, 24
+
+
+K1_KINDS = ["dup_id", "masked", "p_limit", "k2_1", "k2_24", "k2_32",
+            "k2_33", "k2_256"]
+
+
+@pytest.mark.parametrize("chunks", [1, 3, "P", None])
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_q8_kernel_chunks_match_plain(cuda, kind, chunks):
+    """K1 splits each query's plan over ``chunks`` blocks ("P": one a
+    probe, None: the card's own count, both within the kernel's limit) and
+    merges their partial top-k2: the same candidates as the plain version
+    at one chunk and at many."""
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    arrays, k2 = _k1_special_case(kind)
+    arrays = _dev(arrays, cuda)
+    p = arrays[5].shape[1]
+    top = tq8._max_chunks(p, k2)
+    n = None if chunks is None else min(p if chunks == "P" else chunks, top)
+    gd, gi = tq8.ivf_scan_q8_topk_cuda(*arrays, k2=k2, chunks=n)
+    wd, wi = tq8.ivf_scan_q8_topk_plain(*arrays, k2=k2)
+    torch.cuda.synchronize()
+    assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-3)
+    if kind == "dup_id":
+        assert (gi[0].cpu().numpy() == 123_456).sum() == 1
+    if kind == "masked":
+        assert torch.isinf(gd[3]).all() and (gi[3] == -1).all()
+
+
+def test_q8_kernel_deterministic_run_to_run(cuda):
+    """Two launches on the same inputs give the same bits: the merge's
+    order does not depend on which block finished first."""
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    arrays = _dev(q8_case(300, 128, 128, 32, 16, seed=53, dead=0.05,
+                          masked=0.1, dup=True), cuda)
+    a = tq8.ivf_scan_q8_topk_cuda(*arrays, k2=24)
+    b = tq8.ivf_scan_q8_topk_cuda(*arrays, k2=24)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_q8_kernel_refuses_what_it_does_not_take(cuda):
+    """Too many probes, a chunk count beyond the kernel's limit, int64 cids
+    or a mask that is not bool raise ValueError; nothing falls back."""
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    arrays = _dev(q8_case(20, 8, 16, 3, 257, seed=54), cuda)
+    with pytest.raises(ValueError, match="P=257"):
+        tq8.ivf_scan_q8_topk_cuda(*arrays, k2=8)
+    arrays = _dev(q8_case(20, 8, 16, 3, 4, seed=55), cuda)
+    with pytest.raises(ValueError, match="chunks"):
+        tq8.ivf_scan_q8_topk_cuda(*arrays, k2=8, chunks=5)
+    bad = list(arrays)
+    bad[5] = bad[5].long()
+    with pytest.raises(ValueError, match="int32"):
+        tq8.ivf_scan_q8_topk_cuda(*bad, k2=8)
+    bad = list(arrays)
+    bad[6] = bad[6].to(torch.uint8)
+    with pytest.raises(ValueError, match="bool"):
+        tq8.ivf_scan_q8_topk_cuda(*bad, k2=8)
+
+
 @pytest.mark.parametrize("n,k,d", [(700, 9, 6), (5000, 8, 128), (64, 40, 3),
                                    (40000, 700, 32)])
 def test_kmeans_kernels_bit_equal_on_grid_inputs(cuda, n, k, d):
@@ -230,7 +317,8 @@ def test_fused_scans_follow_the_reference_on_a_nan_distance(cuda, kernel,
                                                             where):
     """A NaN distance of a live row empties the query's candidates at that
     slot; later slots refill them (the reference's _extract_topk, which
-    the plain versions follow): B2 at one chunk and at many, and K1."""
+    the plain versions follow): B2 and K1 at one chunk and at many, so the
+    NaN falls in the first and in the last chunk."""
     from repro_torch.kernels import ivf_scan as tscan
     from repro_torch.kernels import ivf_scan_q8 as tq8
 
@@ -248,7 +336,8 @@ def test_fused_scans_follow_the_reference_on_a_nan_distance(cuda, kernel,
         plant_nan(arrays[2], arrays[4], arrays[5], arrays[6], where, q=1)
         arrays = _dev(arrays, cuda)
         want = tq8.ivf_scan_q8_topk_plain(*arrays, k2=24)
-        gots = [tq8.ivf_scan_q8_topk_cuda(*arrays, k2=24)]
+        gots = [tq8.ivf_scan_q8_topk_cuda(*arrays, k2=24, chunks=n)
+                for n in (1, 3, 8, None)]
         tol = 1e-3
     torch.cuda.synchronize()
     for gd, gi in gots:

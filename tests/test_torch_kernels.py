@@ -112,6 +112,43 @@ def test_plan_tile_probes_bit_identical(b, p, bq, n, chunk):
     assert tt.dtype == torch.int32 and tq.dtype == torch.int32
 
 
+@pytest.mark.parametrize("p", [1, 2, 7, 16, 33, 64])
+@pytest.mark.parametrize("kind", ["mixed", "duplicates", "all_masked",
+                                  "negative"])
+def test_query_plan_plain_matches_plan_tile_probes_one_query_a_tile(kind, p):
+    """The plan K1 builds in each block (its plain version) is the plan of
+    the JAX package's and the port's ``plan_tile_probes`` at one query a
+    tile: sorted, deduplicated, masked and negative probes dead and last,
+    out-of-range ids clamped."""
+    rng = np.random.default_rng(100 * p + len(kind))
+    b, n = 11, 24
+    cids = rng.integers(-2, n + 3, size=(b, p)).astype(np.int32)
+    mask = rng.random((b, p)) < 0.8
+    if kind == "duplicates":
+        cids = rng.integers(0, 4, size=(b, p)).astype(np.int32)
+        cids[:, -1] = cids[:, 0]
+    elif kind == "all_masked":
+        mask[:] = False
+    elif kind == "negative":
+        cids[rng.random((b, p)) < 0.5] = -1
+        mask[:] = True
+    mask[0] = False                          # one fully masked query always
+    tc, tm = torch.from_numpy(cids), torch.from_numpy(mask)
+    got_c, got_q = tq8.query_plan_plain(tc, tm, n)
+    jt, jq = j_plan(jnp.asarray(cids), jnp.asarray(mask), 1, n)
+    pt, pq = plan_tile_probes(tc, tm, 1, n)
+    assert got_c.dtype == torch.int32 and got_q.dtype == torch.int32
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(jq).reshape(b, p))
+    np.testing.assert_array_equal(got_c.numpy(), pt.numpy())
+    np.testing.assert_array_equal(got_q.numpy(), pq.reshape(b, p).numpy())
+    live = mask & (cids >= 0)
+    for r in range(b):
+        want = np.unique(np.clip(cids[r][live[r]], 0, n - 1))
+        np.testing.assert_array_equal(got_c.numpy()[r][got_q.numpy()[r] != 0],
+                                      want)
+
+
 def test_extract_topk_merge_rule_matches_jax():
     from repro.kernels.ivf_scan import _extract_topk
 

@@ -10,13 +10,16 @@ in a process of its own that imports that tree's ``repro_torch`` and
 ``chip_smoke.py`` and builds that tree's kernels.  The timers are this
 script's, so every tree is read with the same yardstick:
 
-- K1 (``ivf_scan_q8_topk``) alone on a prebuilt plan and through its
-  wrapper, and B2 (``ivf_scan_topk``) the same, on one synthetic batch made
-  from a seed (B 32, P 16, 512 packed rows of L 128 and D 128, k2 24: the
-  shape of chip_smoke's phase 6); each timed two ways: CUDA events around
-  n launches as chip_smoke's ``time_ms`` times them ("events", the host's
-  enqueue time included when it is the longer), and the same launches
-  queued behind a sleep kernel ("queued", the card's time alone);
+- K1 (``ivf_scan_q8_topk``) through its wrapper ``ivf_scan_q8_topk_cuda``,
+  whose signature every tree shares (on a tree whose wrapper plans on the
+  host, also its kernel alone on a prebuilt plan), and B2
+  (``ivf_scan_topk``) alone on a prebuilt plan and through its wrapper, on
+  one synthetic batch made from a seed (B 32, P 16, 512 packed rows of L 128
+  and D 128, k2 24: the shape of chip_smoke's phase 6); each timed two ways
+  by ``time_two_ways`` of this checkout's ``chip_smoke.py``: CUDA events
+  around n launches as they are issued ("events", the host's enqueue time
+  included when it is the longer), and the same launches queued behind a
+  sleep kernel ("queued", the card's time alone);
 - the 1M build of the tree's own phase 3 and its ``index_content_hash``;
 - run (a) of the tree's phase 11 (engine, quality stack on, one 6 s
   open-loop trace) at the fixed offered rate ``--rate`` in q/s, in place of
@@ -28,6 +31,7 @@ all to ``--out`` as a JSON list.  Needs one card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -35,38 +39,20 @@ import sys
 import tempfile
 import time
 
-SLEEP_CYCLES_PER_S = 1.98e9      # torch.cuda._sleep's unit: SM clock cycles
-                                 # (the H100 SXM's 1,980 MHz boost clock)
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def time_two_ways(fn, n: int, warm: int = 3) -> dict:
-    """Device ms a call of ``fn``: CUDA events around n calls, first as they
-    are issued, then with the n calls queued behind a sleep kernel that
-    holds the stream for about twice the host's time to issue them."""
-    import torch
-
-    t0 = time.perf_counter()
-    for _ in range(warm):
-        fn()
-    host_s = (time.perf_counter() - t0) / max(warm, 1)
-    out = {}
-    for how in ("events", "queued"):
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if how == "queued":
-            torch.cuda._sleep(int(min(2 * n * host_s, 1.0)
-                                  * SLEEP_CYCLES_PER_S))
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        out[how] = a.elapsed_time(b) / n
-    return out
+def _yardstick():
+    """``time_two_ways`` of this checkout's chip_smoke.py, loaded under a
+    name of its own, so every tree is timed by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_yardstick", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.time_two_ways
 
 
-def kernel_times(cs) -> dict:
+def kernel_times(cs, time_two_ways) -> dict:
     from repro_torch.kernels import ivf_scan as scan
     from repro_torch.kernels import ivf_scan_q8 as q8m
     from repro_torch.kernels.ivf_scan import plan_tile_probes
@@ -74,12 +60,17 @@ def kernel_times(cs) -> dict:
     k2 = 24
     q8, scale, norm2, cents, ids, cids, mask, q = cs.q8_inputs(
         512, 128, 128, 32, 16, seed=1, dead=0.05, masked=0.2)
-    tc1, qs1 = plan_tile_probes(cids, mask, 1, q8.shape[0])
-    qs1 = qs1.reshape(cids.shape)
-    k1 = {"alone": time_two_ways(lambda: q8m.ivf_scan_q8_topk_planned(
-              q8, scale, norm2, cents, ids, tc1, qs1, q, k2=k2), n=200),
-          "wrapper": time_two_ways(lambda: q8m.ivf_scan_q8_topk_cuda(
-              q8, scale, norm2, cents, ids, cids, mask, q, k2=k2), n=200)}
+    k1 = {"wrapper": time_two_ways(lambda: q8m.ivf_scan_q8_topk_cuda(
+        q8, scale, norm2, cents, ids, cids, mask, q, k2=k2), n=200)}
+    # alone: on a tree whose wrapper plans on the host, the kernel on a
+    # prebuilt plan; elsewhere the wrapper launches nothing but the kernels
+    k1["alone"] = k1["wrapper"]
+    planned = getattr(q8m, "ivf_scan_q8_topk_planned", None)
+    if planned is not None:
+        tc1, qs1 = plan_tile_probes(cids, mask, 1, q8.shape[0])
+        qs1 = qs1.reshape(cids.shape)
+        k1["alone"] = time_two_ways(lambda: planned(
+            q8, scale, norm2, cents, ids, tc1, qs1, q, k2=k2), n=200)
     post, pids, cids, mask, q = cs.f32_inputs(512, 128, 128, 32, 16, seed=15,
                                               dead=0.05, masked=0.2)
     pc, pm, pq = scan._pad_tile(cids, mask, q, scan.BQ)
@@ -93,6 +84,7 @@ def kernel_times(cs) -> dict:
 
 def run_one(tree: str, rate: float) -> dict:
     tree = os.path.abspath(tree)
+    time_two_ways = _yardstick()
     sys.path.insert(0, tree)
     import torch
 
@@ -109,7 +101,8 @@ def run_one(tree: str, rate: float) -> dict:
                          f"{tree}'s")
     card = cs.phase_device()["card"]
     cuda_lib.build_info()
-    out = {"tree": tree, "card": card, "kernels": kernel_times(cs)}
+    out = {"tree": tree, "card": card,
+           "kernels": kernel_times(cs, time_two_ways)}
     work = tempfile.mkdtemp(prefix="chip_ab_")
     built = cs.phase_build(work)
     out["build_s"] = built["build_s"]
