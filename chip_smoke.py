@@ -23,7 +23,13 @@ Phases, each of which raises on failure:
    launches; K1 and B2 with a NaN distance in
    a live row of the first, a middle or the last slot of a query's plan,
    or of a slot only one query of its tile probes (the query's candidates
-   restart after that slot, as the reference's _extract_topk gives);
+   restart after that slot, as the reference's _extract_topk gives); B5 in
+   both variants (narrow, wide) wherever each takes the shape, bit-equal
+   to each other, equal to the plain version on grid inputs, and with
+   argmin/min bit-equal to K2's assign/min_dist, at the unfused build's
+   shapes and on both sides of the narrow/wide threshold; B6a at the edges
+   of its ring of row chunks (L 1, 33, 129, 1024; D 4, 36, 1024) with
+   out-of-range cluster ids and a fully masked query;
 3. build: builds a SIFT1M-sized index (1,000,000 x 128, the
    ann-benchmarks sift-128-euclidean base size) with the port's own
    ``build_index`` (launch serve settings: max_cluster_size 96,
@@ -51,7 +57,8 @@ Phases, each of which raises on failure:
    their two kernels; K2 at
    the 1M reassignment with its per-kernel split from torch.profiler; K23
    on the 1M build's largest step, beside the build's own per-step times;
-   B5 also at the shapes phase 10's unfused build launched it with);
+   B5 also at every shape phase 10's unfused build launched it with,
+   summed over its launches by variant beside the bound's sum);
 7. resident f32: ``serve_step`` over the phase-4 queries on the index held
    on the card, fused (B2) and legacy (B6a), then ``serve_leveled`` and the
    resident q8 tier (``attach_quantized``, K1); recall against the probe
@@ -465,25 +472,69 @@ def check_b6a(case: str, post, cids, mask, queries) -> float:
 
 
 def check_b5(case: str, a, b) -> float:
+    """B5 in every variant that takes the shape (narrow where b fits,
+    wide always) and as its wrapper picks: each within a few ulps of the
+    plain version, the variants bit-equal to each other, and the argmin
+    and min of the distances bit-equal to K2's assign and min_dist."""
+    import torch
+
+    from repro_torch.kernels import kmeans_assign as am
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    n, d = a.shape
+    m = b.shape[0]
+    variants = [v for v in ("narrow", "wide")
+                if v == "wide" or pw.narrow_rows(m, d) >= 1]
+    gots = {v: pw.pairwise_l2_cuda(a, b, variant=v) for v in variants}
+    picked = pw.pairwise_l2_cuda(a, b)
+    want = pw.pairwise_l2_plain(a, b)
+    k2_assign, k2_min = am.kmeans_assign_update_cuda(a, b)[:2]
+    torch.cuda.synchronize()
+    # the norm form cancels: allow a few ulps of ||a||^2 + ||b||^2
+    scale = float((a * a).sum(1).max() + (b * b).sum(1).max()) + 1.0
+    err = 0.0
+    for v, got in gots.items():
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B5 {case} {v}: shape or non-finite values")
+        if bool((got < 0).any()):
+            raise AssertionError(f"B5 {case} {v}: negative distance")
+        e = float((got - want).abs().max())
+        if e > 2e-6 * scale:
+            raise AssertionError(f"B5 {case} {v}: err {e} > {2e-6 * scale}")
+        if not torch.equal(got.view(torch.int32), picked.view(torch.int32)):
+            raise AssertionError(f"B5 {case}: {v} differs from the picked "
+                                 f"variant ({pw.pairwise_l2_variant(n, m, d)})"
+                                 f" in its bits")
+        err = max(err, e)
+    if not (torch.equal(torch.argmin(picked, 1).to(torch.int32), k2_assign)
+            and torch.equal(torch.min(picked, 1).values.view(torch.int32),
+                            k2_min.view(torch.int32))):
+        raise AssertionError(f"B5 {case}: argmin/min differ from K2's "
+                             f"assign/min_dist")
+    log(f"[kernels] B5 {case}: ok variants {variants} bit-equal, picked "
+        f"{pw.pairwise_l2_variant(n, m, d)}, argmin/min = K2's, "
+        f"max_abs_err={err:.3g} (limit {2e-6 * scale:.3g})")
+    return err
+
+
+def check_b5_exact(case: str, n: int, m: int, d: int, seed: int) -> None:
+    """B5 on grid inputs (every distance exact in f32) in every variant
+    that takes the shape: equal to the plain version."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import pairwise_l2 as pw
 
-    got = pw.pairwise_l2_cuda(a, b)
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.integers(-4, 5, size=(r, d)).astype(
+        np.float32)).cuda() for r in (n, m))
     want = pw.pairwise_l2_plain(a, b)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"B5 {case}: shape or non-finite values")
-    if bool((got < 0).any()):
-        raise AssertionError(f"B5 {case}: negative distance")
-    # the norm form cancels: allow a few ulps of ||a||^2 + ||b||^2
-    scale = float((a * a).sum(1).max() + (b * b).sum(1).max()) + 1.0
-    err = float((got - want).abs().max())
-    if err > 2e-6 * scale:
-        raise AssertionError(f"B5 {case}: err {err} > {2e-6 * scale}")
-    log(f"[kernels] B5 {case}: ok max_abs_err={err:.3g} "
-        f"(limit {2e-6 * scale:.3g})")
-    return err
+    for v in ("narrow", "wide"):
+        if v == "narrow" and pw.narrow_rows(m, d) < 1:
+            continue
+        if not torch.equal(pw.pairwise_l2_cuda(a, b, variant=v), want):
+            raise AssertionError(f"B5 exact {case} {v}: differs from plain")
+    log(f"[kernels] B5 exact {case}: ok, equal to plain")
 
 
 def cmajor_inputs(c, l, d, b, a_n, *, seed, nan_row=False, device="cuda"):
@@ -705,6 +756,7 @@ def phase_kernels() -> dict:
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import pairwise_l2 as pw
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_port import NAN_WHERE, plant_nan   # the CPU tests' NaN cases
@@ -921,14 +973,39 @@ def phase_kernels() -> dict:
         post, _, cids, mask, q = f32_inputs(*shape, seed=19, **kw)
         errs["ivf_scan"] = max(errs["ivf_scan"],
                                check_b6a(case, post, cids, mask, q))
+    # the ring's edges: one row, a chunk and one, a chunk boundary past
+    # several; D of one float4, of 9 (one thread a row), of 256 (a warp);
+    # out-of-range cluster ids (clamped) and a query with every probe masked
+    for l, d in ((1, 4), (33, 36), (129, 1024), (1024, 36), (1024, 1024)):
+        post, _, cids, mask, q = f32_inputs(6, l, d, 5, 4, seed=l + d,
+                                            masked=0.2)
+        cids[0, 1], cids[1, 2] = 9, -5
+        mask[0, 1] = mask[1, 2] = True
+        mask[3] = False
+        errs["ivf_scan"] = max(errs["ivf_scan"], check_b6a(
+            f"ring L{l} D{d} out-of-range ids + masked query", post, cids,
+            mask, q))
 
     for case, (n, k, d) in (("build chunk 16384x20614x128",
                              (16384, 20614, 128)),
                             ("ragged 2049x65x3", (2049, 65, 3)),
                             ("ragged 1x1x5", (1, 1, 5)),
-                            ("K > N 100x300x20", (100, 300, 20))):
+                            ("K > N 100x300x20", (100, 300, 20)),
+                            ("unfused most launched 97x2x128", (97, 2, 128)),
+                            ("unfused splitter 5000x8x128", (5000, 8, 128)),
+                            ("unfused most work 16384x1929x128",
+                             (16384, 1929, 128)),
+                            ("narrow ragged 129x7x37", (129, 7, 37)),
+                            ("narrow D=1024 300x8x1024", (300, 8, 1024)),
+                            ("at the threshold 3000xMAXx128",
+                             (3000, pw.NARROW_MAX_M, 128)),
+                            ("past the threshold 3000x(MAX+1)x128",
+                             (3000, pw.NARROW_MAX_M + 1, 128))):
         a, b = kmeans_inputs(n, k, d, seed=n + k)
         errs["pairwise_l2"] = max(errs["pairwise_l2"], check_b5(case, a, b))
+    for n, m, d in ((1, 1, 3), (127, 2, 37), (129, 8, 128), (128, 129, 37),
+                    (2, 128, 1024), (16384, 1929, 128)):
+        check_b5_exact(f"{n}x{m}x{d}", n, m, d, seed=n * m + d)
 
     for case, shape, kw in (
             ("main union A458 L128 D128 B32", (600, 128, 128, 32, 458), {}),
@@ -950,17 +1027,18 @@ def phase_kernels() -> dict:
 
     # a NaN in one live row of B6a and one input row of B5 stays NaN
     from repro_torch.kernels import ivf_scan as scan
-    from repro_torch.kernels import pairwise_l2 as pw
 
     post, _, cids, mask, q = f32_inputs(40, 48, 24, 13, 7, seed=23)
     mask[:] = True
     post[int(cids[2, 1]), 7, 3] = float("nan")
     check_nan_kept("B6a NaN row", scan.ivf_scan_cuda(post, cids, mask, q),
                    scan.ivf_scan_plain(post, cids, mask, q))
-    a, b = kmeans_inputs(700, 90, 24, seed=24)
-    a[33, 4] = float("nan")
-    check_nan_kept("B5 NaN input row", pw.pairwise_l2_cuda(a, b),
-                   pw.pairwise_l2_plain(a, b))
+    for m, variant in ((90, "wide"), (4, "narrow"), (4, "wide")):
+        a, b = kmeans_inputs(700, m, 24, seed=24)
+        a[33, 4] = float("nan")
+        check_nan_kept(f"B5 NaN input row, M={m} {variant}",
+                       pw.pairwise_l2_cuda(a, b, variant=variant),
+                       pw.pairwise_l2_plain(a, b))
     return errs
 
 
@@ -2450,7 +2528,8 @@ def b7_row(resident: dict, kernel_errs: dict) -> dict:
 
 def b5_row(built: dict, kernel_errs: dict) -> dict:
     """B5 on one 16,384-row build chunk against the final 1M centroids,
-    with torch.cdist as the library yardstick."""
+    with torch.cdist as the library yardstick, and over every launch of
+    phase 10's unfused build."""
     import torch
 
     from repro_torch.kernels import pairwise_l2 as pw
@@ -2469,7 +2548,8 @@ def b5_row(built: dict, kernel_errs: dict) -> dict:
                 2 * n * m * d,
                 "torch.cdist(a, b): the square root of the same quantity "
                 "(Euclidean, not squared), timed as the yardstick",
-                f"N={n} M={m} D={d} (one build chunk vs the final centroids)",
+                f"N={n} M={m} D={d} (one build chunk vs the final centroids, "
+                f"{pw.pairwise_l2_variant(n, m, d)} variant)",
                 library_ms=library, device_ms=t["queued"],
                 unfused_build=b5_unfused_shapes())
 
@@ -2479,11 +2559,43 @@ def b5_bound_ms(n: int, m: int, d: int) -> float:
                2 * n * m * d / FP32_FLOP_PER_S) * 1e3
 
 
+def b5_shape_times(shapes: dict, launch, variant_of=None,
+                   seed: int = 27) -> dict:
+    """B5 through ``launch`` (a function with ``pairwise_l2_cuda``'s
+    signature) at every distinct (N, M, D) of ``shapes`` (shape ->
+    launches), on standard normal inputs made from ``seed``: each shape
+    timed by :func:`time_two_ways`, and its times and bound summed over its
+    launches, in all and, given ``variant_of(n, m, d)``, by variant."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sums: dict = {}
+    for (n, m, d), count in sorted(shapes.items()):
+        a = torch.from_numpy(rng.standard_normal((n, d), np.float32)).cuda()
+        b = torch.from_numpy(rng.standard_normal((m, d), np.float32)).cuda()
+        reps = 50 if n * m <= 1 << 20 else 10
+        t = time_two_ways(lambda: launch(a, b), n=reps)
+        keys = ["all"] + ([variant_of(n, m, d)] if variant_of else [])
+        for key in keys:
+            acc = sums.setdefault(key, {"launches": 0, "shapes": 0,
+                                        "ms_sum_events": 0.0,
+                                        "ms_sum_device": 0.0,
+                                        "bound_ms_sum": 0.0})
+            acc["launches"] += count
+            acc["shapes"] += 1
+            acc["ms_sum_events"] += count * t["events"]
+            acc["ms_sum_device"] += count * t["queued"]
+            acc["bound_ms_sum"] += count * b5_bound_ms(n, m, d)
+    return sums
+
+
 def b5_unfused_shapes() -> dict:
-    """B5 at the shapes phase 10's unfused build launched it with: the
-    launches summed by shape, the bound summed over every launch, and the
-    kernel, the plain version and torch.cdist timed at the shape that
-    launched most and at the one with the most work (launches x bound)."""
+    """B5 at the shapes phase 10's unfused build launched it with: every
+    distinct shape timed and summed over its launches (beside the bound's
+    sum), and the kernel, the plain version and torch.cdist timed at the
+    shape that launched most and at the one with the most work (launches x
+    bound)."""
     import numpy as np
     import torch
 
@@ -2499,14 +2611,19 @@ def b5_unfused_shapes() -> dict:
              "most_work": max(work, key=lambda sh: work[sh])}
     rng = np.random.default_rng(27)
     out = {"launches": len(B5_SHAPES), "distinct_shapes": len(shapes),
-           "bound_ms_sum": float(sum(work.values()))}
+           "bound_ms_sum": float(sum(work.values())),
+           "narrow_max_m": pw.NARROW_MAX_M,
+           "all_launches": b5_shape_times(shapes, pw.pairwise_l2_cuda,
+                                          pw.pairwise_l2_variant)}
     for tag, (n, m, d) in picks.items():
         a = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
         b = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).cuda()
         reps = 200 if n * m <= 1 << 20 else 10
+        t = time_two_ways(lambda: pw.pairwise_l2_cuda(a, b), n=reps)
         out[tag] = {"shape": f"N={n} M={m} D={d}",
+                    "variant": pw.pairwise_l2_variant(n, m, d),
                     "launches": shapes[(n, m, d)],
-                    "ms": time_ms(lambda: pw.pairwise_l2_cuda(a, b), n=reps),
+                    "ms": t["events"], "device_ms": t["queued"],
                     "plain_ms": time_ms(lambda: pw.pairwise_l2_plain(a, b),
                                         n=reps),
                     "library_ms": time_ms(lambda: torch.cdist(a, b), n=reps),

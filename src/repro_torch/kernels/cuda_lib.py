@@ -47,7 +47,7 @@ _SIGNATURES = {
     "ivf_scan_topk_smem_bytes": [_I, _I, _I],
     "ivf_scan_topk_max_chunks": [_I, _I],
     "ivf_scan_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "pairwise_l2_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "pairwise_l2_launch": [_P] * 4 + [_I] * 5 + [_P],
     "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],
     "ivf_scan_q8_legacy_launch": [_P] * 8 + [_I] * 5 + [_P],
     "kmeans_batched_launch": [_P] * 9 + [_I] * 3 + [_P],
@@ -184,6 +184,13 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream.  Read through
+    torch's own accessor of the raw pointer (the one Triton's launcher
+    uses): ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream
+    object first, which costs several microseconds of a small kernel's
+    host time."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

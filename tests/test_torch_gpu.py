@@ -375,6 +375,95 @@ def test_pairwise_l2_kernel_matches_plain(cuda, n, m, d):
                                atol=1e-4)
 
 
+B5_EDGES = (1, 2, 8, 127, 128, 129)   # around the narrow and wide tiles
+
+
+def _b5_variants(m, d):
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    return [v for v in ("narrow", "wide")
+            if v == "wide" or tpw.narrow_rows(m, d) >= 1]
+
+
+@pytest.mark.parametrize("d", [3, 37, 128, 1024])
+@pytest.mark.parametrize("n", B5_EDGES)
+def test_pairwise_l2_variants_equal_plain_at_tile_edges(cuda, n, d):
+    """Every variant that takes the shape, and the wrapper's pick, equal the
+    plain version on grid points (exact in f32), for every M of B5_EDGES:
+    both sides of the narrow/wide threshold and of the 128-wide tiles."""
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    for m in B5_EDGES + (tpw.NARROW_MAX_M, tpw.NARROW_MAX_M + 1):
+        a, b = _dev(grid_points(n, m, d, seed=n * 131 + m + d), cuda)
+        want = tpw.pairwise_l2_plain(a, b)
+        assert torch.equal(tpw.pairwise_l2_cuda(a, b), want), (n, m, d)
+        for variant in _b5_variants(m, d):
+            got = tpw.pairwise_l2_cuda(a, b, variant=variant)
+            assert torch.equal(got, want), (n, m, d, variant)
+
+
+@pytest.mark.parametrize("d", [3, 37, 128, 1024])
+def test_pairwise_l2_equals_plain_at_the_unfused_builds_largest_shape(cuda,
+                                                                      d):
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    a, b = _dev(grid_points(16384, 1929, d, seed=d), cuda)
+    assert torch.equal(tpw.pairwise_l2_cuda(a, b),
+                       tpw.pairwise_l2_plain(a, b))
+
+
+@pytest.mark.parametrize("n,m", [(97, 2), (5000, 8), (16384, 1929),
+                                 (3000, 300)])
+def test_pairwise_l2_argmin_bit_equal_to_kmeans_assign(cuda, n, m):
+    """On normal data the argmin and min of B5's distances are K2's assign
+    and min_dist bit for bit, in every variant: the unfused and the fused
+    E-step agree, so the unfused build hashes as before."""
+    from repro_torch.kernels import kmeans_assign as tassign
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    rng = np.random.default_rng(n + m)
+    x, c = _dev((rng.normal(size=(n, 128)).astype(np.float32),
+                 rng.normal(size=(m, 128)).astype(np.float32)), cuda)
+    assign, min_dist = tassign.kmeans_assign_update_cuda(x, c)[:2]
+    for variant in _b5_variants(m, 128):
+        d = tpw.pairwise_l2_cuda(x, c, variant=variant)
+        assert torch.equal(torch.argmin(d, dim=1).to(torch.int32), assign)
+        assert torch.equal(torch.min(d, dim=1).values.view(torch.int32),
+                           min_dist.view(torch.int32)), variant
+
+
+def test_pairwise_l2_refuses_a_narrow_shape_that_does_not_fit(cuda):
+    from repro_torch.kernels import pairwise_l2 as tpw
+
+    a, b = _dev(grid_points(10, 64, 1024, seed=1), cuda)
+    assert tpw.narrow_rows(64, 1024) == 0
+    with pytest.raises(ValueError, match="do not fit"):
+        tpw.pairwise_l2_cuda(a, b, variant="narrow")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tpw.pairwise_l2_cuda(a, b, variant="tiled")
+
+
+@pytest.mark.parametrize("d", [4, 36, 1024])
+@pytest.mark.parametrize("l", [1, 33, 129, 1024])
+def test_legacy_scan_kernel_at_ring_edges(cuda, l, d):
+    """B6a where its ring of row chunks starts, wraps and ends ragged, at a
+    D of one float4, of one thread a row and of a warp a row, with cluster
+    ids out of range (clamped) and a query with every probe masked."""
+    from repro_torch.kernels import ivf_scan as tscan
+
+    post, _, cids, mask, q = f32_case(6, l, d, 5, 4, seed=l + d, masked=0.2)
+    cids[0, 1], cids[1, 2] = 9, -5
+    mask[0, 1] = mask[1, 2] = True
+    mask[3] = False
+    post, cids, mask, q = _dev((post, cids, mask, q), cuda)
+    got = tscan.ivf_scan_cuda(post, cids, mask, q)
+    want = tscan.ivf_scan_plain(post, cids, mask, q)
+    torch.cuda.synchronize()
+    assert torch.isinf(got[~mask]).all() and (got[~mask] > 0).all()
+    assert torch.isfinite(got[mask]).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
 def test_unfused_kmeans_assign_on_card_bit_equal_to_cpu(cuda):
     from repro_torch.kernels import ops
     from repro_torch.kernels.cuda_lib import LAUNCHES

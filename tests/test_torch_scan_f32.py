@@ -141,6 +141,71 @@ def test_pairwise_l2_plain_matches_pallas_kernel_in_interpret_mode():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("m", [1, 2, 8])
+def test_pairwise_l2_plain_matches_pallas_kernel_at_unfused_build_shapes(m):
+    """The unfused build's narrow shape classes (97 points against the
+    splitter's 1, 2 or 8 centroids, D 128), normal data, against the Pallas
+    kernel in interpret mode."""
+    rng = np.random.default_rng(97 + m)
+    a = rng.normal(size=(97, 128)).astype(np.float32)
+    b = rng.normal(size=(m, 128)).astype(np.float32)
+    got = tpw.pairwise_l2_plain(*_t(a, b)).numpy()
+    want = np.asarray(jops.pairwise_l2(*_j(a, b)))
+    assert got.shape == want.shape == (97, m)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,d,want", [
+    (1, 128, "narrow"), (2, 128, "narrow"), (8, 128, "narrow"),
+    (tpw.NARROW_MAX_M, 128, "narrow"), (tpw.NARROW_MAX_M + 1, 128, "wide"),
+    (1929, 128, "wide"), (20614, 128, "wide"), (2, 3, "narrow"),
+    (8, 1024, "narrow"), (tpw.NARROW_MAX_M, 1024, "wide")])
+def test_pairwise_l2_variant_choice_around_its_threshold(m, d, want):
+    """The narrow variant serves M up to NARROW_MAX_M where all of b and at
+    least one row of a fit its shared memory; everything else goes wide."""
+    for n in (1, 97, 16384):
+        assert tpw.pairwise_l2_variant(n, m, d) == want
+    rows = tpw.narrow_rows(m, d)
+    ld4 = -(-d // 4) | 1
+    if want == "narrow":
+        assert rows >= 1
+        assert (m + rows) * (ld4 * 16 + 4) <= tpw.NARROW_SMEM
+        assert (rows - 1) * m < tpw.NARROW_PAIRS
+    elif m <= tpw.NARROW_MAX_M:
+        assert rows == 0 and (m + 1) * (ld4 * 16 + 4) > tpw.NARROW_SMEM
+
+
+@pytest.mark.parametrize("variant", [None, "narrow", "wide"])
+def test_pairwise_l2_cuda_refuses_cpu_tensors_in_every_variant(variant):
+    a, b = _t(*grid_points(97, 2, 128, seed=9))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tpw.pairwise_l2_cuda(a, b, variant=variant)
+
+
+@pytest.mark.parametrize("l,d", [(1, 4), (33, 36), (129, 12)])
+def test_legacy_scan_plain_matches_jax_at_ring_edges(l, d):
+    """B6a's plain version against JAX (its oracle and, where small, the
+    Pallas kernel in interpret mode) at the CUDA kernel's ring edges, with
+    out-of-range cluster ids and a query with every probe masked; its CUDA
+    wrapper refuses the same inputs on the CPU."""
+    post, _, cids, mask, queries = f32_case(6, l, d, 5, 4, seed=l + d,
+                                            masked=0.2)
+    cids[0, 1], cids[1, 2] = 9, -5
+    mask[0, 1] = mask[1, 2] = True
+    mask[3] = False
+    args = _t(post, cids, mask, queries)
+    got = tscan.ivf_scan_plain(*args).numpy()
+    want = np.asarray(jref.ivf_scan_ref(*_j(post, cids, mask, queries)))
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL * 10)
+    assert (got[~mask] == np.inf).all() and np.isfinite(got[mask]).all()
+    if l <= 33:
+        pallas = np.asarray(jops.ivf_scan(*_j(post, cids, mask, queries)))
+        np.testing.assert_allclose(got, pallas, rtol=F32_TOL,
+                                   atol=F32_TOL * 10)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        tscan.ivf_scan_cuda(*args)
+
+
 def test_ops_dispatch_f32_kernels_to_plain_versions_on_cpu():
     arrays = _t(*f32_case(16, 8, 16, 8, 4, seed=5, dead=0.2))
     a, b = _t(*grid_points(50, 7, 4, seed=3))

@@ -20,7 +20,16 @@ script's, so every tree is read with the same yardstick:
   around n launches as they are issued ("events", the host's enqueue time
   included when it is the longer), and the same launches queued behind a
   sleep kernel ("queued", the card's time alone);
-- the 1M build of the tree's own phase 3 and its ``index_content_hash``;
+- B5 (``pairwise_l2``) through its wrapper ``pairwise_l2_cuda(a, b)`` at
+  16,384 x 20,614, 16,384 x 1,929 and 97 x 2 (D 128) on seeded inputs, and
+  summed over every launch of the tree's own unfused 100k build (phase 10's
+  configuration, the shapes recorded as it runs): each distinct shape timed
+  both ways and weighted by its launches;
+- B6a (``ivf_scan``) through ``ivf_scan_cuda`` on phase 7's first resident
+  batch (the tree's own 1M index and LLSP plan for the first 32 of phase
+  4's queries);
+- the 1M build of the tree's own phase 3 and its ``index_content_hash``,
+  beside the unfused and the fused 100k builds' stage seconds and hashes;
 - run (a) of the tree's phase 11 (engine, quality stack on, one 6 s
   open-loop trace) at the fixed offered rate ``--rate`` in q/s, in place of
   a quarter of phase 4's QPS, and the 256 recall probes after it.
@@ -31,6 +40,7 @@ all to ``--out`` as a JSON list.  Needs one card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -43,13 +53,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _yardstick():
-    """``time_two_ways`` of this checkout's chip_smoke.py, loaded under a
-    name of its own, so every tree is timed by the same code."""
+    """This checkout's chip_smoke.py, loaded under a name of its own, so
+    every tree is timed by the same code (``time_two_ways``,
+    ``b5_shape_times``) on the same inputs (``kmeans_inputs``)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_yardstick", os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.time_two_ways
+    return mod
 
 
 def kernel_times(cs, time_two_ways) -> dict:
@@ -82,9 +93,101 @@ def kernel_times(cs, time_two_ways) -> dict:
     return {"ivf_scan_q8_topk": k1, "ivf_scan_topk": b2}
 
 
+B5_SHAPES = {"16384x20614x128": (16384, 20614, 128),
+             "16384x1929x128": (16384, 1929, 128),
+             "97x2x128": (97, 2, 128)}
+
+
+def b5_times(ys) -> dict:
+    """B5 through the tree's wrapper at B5_SHAPES, inputs from this
+    checkout's ``kmeans_inputs``."""
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    out = {}
+    for tag, (n, m, d) in B5_SHAPES.items():
+        a, b = ys.kmeans_inputs(n, m, d, seed=n + m)
+        reps = 10 if n * m > 1 << 20 else 200
+        out[tag] = ys.time_two_ways(lambda: pw.pairwise_l2_cuda(a, b),
+                                    n=reps, warm=2)
+        out[tag]["bound_ms"] = ys.b5_bound_ms(n, m, d)
+    return out
+
+
+def unfused_builds(cs, ys, work: str) -> dict:
+    """The tree's unfused and fused 100k builds in phase 10's
+    configuration: seconds, stage seconds and hash of each, and B5 summed
+    over the unfused build's launches at the shapes it recorded."""
+    import numpy as np
+
+    from repro_torch.build.pipeline import BuildConfig, build_index, \
+        index_content_hash
+    from repro_torch.core.llsp import LLSPConfig
+    from repro_torch.data.synthetic import PAPER_DATASETS, make_queries, \
+        make_vectors
+    from repro_torch.kernels import pairwise_l2 as pw
+
+    spec = dataclasses.replace(PAPER_DATASETS["sift"], n=cs.N_UNFUSED)
+    x = make_vectors(spec)
+    q_train, topk = make_queries(spec, 256)
+    launch = pw.pairwise_l2_cuda
+    shapes: dict = {}
+
+    def recording(a, b):
+        sh = (a.shape[0], b.shape[0], a.shape[1])
+        shapes[sh] = shapes.get(sh, 0) + 1
+        return launch(a, b)
+
+    out = {}
+    for fused in (False, True):
+        cfg = BuildConfig(max_cluster_size=96, cluster_len=128,
+                          coarse_per_task=5000, n_workers=2,
+                          fused_assign=fused,
+                          llsp=LLSPConfig(levels=(8, 16), n_ratio_features=8))
+        pw.pairwise_l2_cuda = launch if fused else recording
+        t0 = time.perf_counter()
+        try:
+            index, _, report = build_index(
+                x, cfg, os.path.join(work, f"unfused-{fused}"),
+                queries=q_train,
+                query_topk=np.minimum(topk, 50).astype(np.int32),
+                device=cs.DEVICE)
+        finally:
+            pw.pairwise_l2_cuda = launch
+        out["fused" if fused else "unfused"] = {
+            "seconds": time.perf_counter() - t0,
+            "stage_seconds": dict(report.stage_seconds),
+            "index_content_hash": index_content_hash(index)[:16]}
+    out["b5_all_launches"] = ys.b5_shape_times(
+        shapes, launch, getattr(pw, "pairwise_l2_variant", None))
+    return out
+
+
+def b6a_times(cs, ys, built) -> dict:
+    """B6a on phase 7's first resident batch of the tree's 1M index."""
+    import torch
+
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.synthetic import make_queries
+    from repro_torch.kernels import ivf_scan as scan
+
+    queries, _ = make_queries(built["spec"], cs.N_BATCHES * cs.BATCH, seed=7)
+    qd = torch.from_numpy(queries[:cs.BATCH]).to(cs.DEVICE)
+    tk = torch.full((cs.BATCH,), 10, dtype=torch.int32, device=cs.DEVICE)
+    index = built["index"]
+    cids, mask = cs.resident_plan(index, built["llsp"], qd, tk,
+                                  SearchConfig(**cs.SERVE_CFG))
+    post = index.postings
+    t = ys.time_two_ways(lambda: scan.ivf_scan_cuda(post, cids, mask, qd),
+                         n=100)
+    t["live_probes"] = int(mask.sum())
+    t["unique_clusters"] = int(cids[mask].unique().numel())
+    return t
+
+
 def run_one(tree: str, rate: float) -> dict:
     tree = os.path.abspath(tree)
-    time_two_ways = _yardstick()
+    ys = _yardstick()
+    time_two_ways = ys.time_two_ways
     sys.path.insert(0, tree)
     import torch
 
@@ -103,10 +206,13 @@ def run_one(tree: str, rate: float) -> dict:
     cuda_lib.build_info()
     out = {"tree": tree, "card": card,
            "kernels": kernel_times(cs, time_two_ways)}
+    out["kernels"]["pairwise_l2"] = b5_times(ys)
     work = tempfile.mkdtemp(prefix="chip_ab_")
+    out["unfused_100k"] = unfused_builds(cs, ys, work)
     built = cs.phase_build(work)
     out["build_s"] = built["build_s"]
     out["index_content_hash"] = index_content_hash(built["index"])[:16]
+    out["kernels"]["ivf_scan"] = b6a_times(cs, ys, built)
     # run (a) alone, offered ``rate`` q/s: phase_engine offers 0.25x the
     # "QPS" it is handed
     cs.ENGINE_RUNS = tuple(r for r in cs.ENGINE_RUNS if r[0] == "a")
