@@ -537,11 +537,15 @@ def check_b5_exact(case: str, n: int, m: int, d: int, seed: int) -> None:
     log(f"[kernels] B5 exact {case}: ok, equal to plain")
 
 
-def cmajor_inputs(c, l, d, b, a_n, *, seed, nan_row=False, device="cuda"):
+def cmajor_inputs(c, l, d, b, a_n, *, seed, nan_row=False, edges=False,
+                  sel=0.5, device="cuda"):
     """Postings (C, L, D), an active-cluster list with a duplicate and
-    out-of-range ids, a selection mask (A, B) and queries; ``nan_row`` puts
-    a NaN in one row of the first active cluster, selected by every
-    query."""
+    out-of-range ids, a selection mask (A, B), each pair selected with
+    probability ``sel``, and queries; ``nan_row`` puts a NaN in one row of
+    the first active cluster, selected by every query; ``edges`` (A >= 7)
+    gives active cluster 4 no selected query, 5 every query, and puts a NaN
+    in a row of 4 (met only by unselected queries) and of 6 (selected by
+    every other query)."""
     import numpy as np
     import torch
 
@@ -554,10 +558,15 @@ def cmajor_inputs(c, l, d, b, a_n, *, seed, nan_row=False, device="cuda"):
     active = rng.permutation(c)[:a_n].astype(np.int32)
     if a_n >= 4:
         active[1], active[2], active[3] = active[0], -3, c + 7
-    qsel = rng.random((a_n, b)) < 0.5
+    qsel = rng.random((a_n, b)) < sel
     if nan_row:
         post[max(active[0], 0), l // 2, d // 3] = np.nan
         qsel[0] = True
+    if edges:
+        qsel[4], qsel[5] = False, True
+        qsel[6] = np.arange(b) % 2 == 0
+        post[active[4], l // 3, d // 2] = np.nan
+        post[active[6], l - 1, 0] = np.nan
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return t(post), t(active), t(qsel), t(queries)
 
@@ -604,7 +613,23 @@ def q8_legacy_inputs(c, l, d, b, p, *, seed, masked=0.0, nan_norm=False,
             (q8, scale, norm2, cents, cids, mask, queries)]
 
 
+def vec4_codes(q8):
+    """A copy of B7's codes 4 bytes past a 16-byte boundary: a contiguous
+    view that ``ivf_scan_q8_variant`` sends to the vec4 variant at any
+    shape."""
+    import torch
+
+    buf = torch.empty(q8.numel() + 16, dtype=torch.int8, device=q8.device)
+    start = (4 - buf.data_ptr()) % 16
+    view = buf[start:start + q8.numel()].view(q8.shape)
+    view.copy_(q8)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
 def check_b7(case: str, *args) -> float:
+    """B7 against its plain version, in the variant ``ivf_scan_q8_variant``
+    picks."""
     import numpy as np
     import torch
 
@@ -623,8 +648,9 @@ def check_b7(case: str, *args) -> float:
     np.testing.assert_allclose(g[live], w[live], rtol=1e-4, atol=1e-3,
                                err_msg=f"B7 {case}")
     err = float(np.abs(g[live] - w[live]).max()) if live.any() else 0.0
-    log(f"[kernels] B7 {case}: ok max_abs_err={err:.3g} "
-        f"nan={int(np.isnan(g).sum())}")
+    picked = q8m.ivf_scan_q8_variant(args[0].shape[2], args[0].data_ptr())
+    log(f"[kernels] B7 {case} ({picked}): ok "
+        f"max_abs_err={err:.3g} nan={int(np.isnan(g).sum())}")
     return err
 
 
@@ -1011,19 +1037,34 @@ def phase_kernels() -> dict:
             ("main union A458 L128 D128 B32", (600, 128, 128, 32, 458), {}),
             ("ragged B13 dup+out-of-range NaN row", (40, 48, 24, 13, 9),
              dict(nan_row=True)),
-            ("D=1024 L=64 B5", (20, 64, 1024, 5, 7), {})):
+            ("D=1024 L=64 B5", (20, 64, 1024, 5, 7), {}),
+            ("main union, qsel all false/all true rows, NaN rows",
+             (600, 128, 128, 32, 458), dict(edges=True, sel=0.035)),
+            ("all selected A458 L128 D128 B32", (600, 128, 128, 32, 458),
+             dict(sel=1.0)),
+            ("4-byte copies D37 L129 B100, edges", (50, 129, 37, 100, 9),
+             dict(edges=True))):
         errs["ivf_scan_clustermajor"] = max(
             errs["ivf_scan_clustermajor"],
             check_b6b(case, *cmajor_inputs(*shape, seed=sum(shape), **kw)))
-    for case, shape, kw in (
+    # vec4: the same codes at 16k+4 bytes, which take the vec4 variant
+    for case, shape, kw, vec4 in (
             ("main resident B32 P16 L128 D128", (600, 128, 128, 32, 16),
-             dict(masked=0.2)),
+             dict(masked=0.2), False),
+            ("main resident B32 P16 L128 D128, codes at 16k+4 bytes",
+             (600, 128, 128, 32, 16), dict(masked=0.2), True),
             ("ragged B13 masked+dup+out-of-range NaN norm",
-             (40, 48, 24, 13, 7), dict(masked=0.3, nan_norm=True)),
-            ("D=1024 L=64 B3", (20, 64, 1024, 3, 4), {})):
-        errs["ivf_scan_q8"] = max(
-            errs["ivf_scan_q8"],
-            check_b7(case, *q8_legacy_inputs(*shape, seed=sum(shape), **kw)))
+             (40, 48, 24, 13, 7), dict(masked=0.3, nan_norm=True), False),
+            ("D=1024 L=64 B3", (20, 64, 1024, 3, 4), {}, False),
+            ("D=1024 L=64 B3, codes at 16k+4 bytes", (20, 64, 1024, 3, 4),
+             {}, True),
+            ("L=1024 D=12 B3", (9, 1024, 12, 3, 4), {}, False),
+            ("L=33 D=16 B5", (9, 33, 16, 5, 4), dict(masked=0.3), False),
+            ("resident shape, codes at 16k+4 bytes",
+             (300, 128, 128, 32, 16), dict(masked=0.2), True)):
+        q8, *rest = q8_legacy_inputs(*shape, seed=sum(shape), **kw)
+        errs["ivf_scan_q8"] = max(errs["ivf_scan_q8"], check_b7(
+            case, vec4_codes(q8) if vec4 else q8, *rest))
 
     # a NaN in one live row of B6a and one input row of B5 stays NaN
     from repro_torch.kernels import ivf_scan as scan
@@ -2416,7 +2457,7 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
         index_post, index_ids, cids, mask, qd, k2=k2), n=10)
     r_bytes, r_flops, r_used, r_pairs = b2_work(rtc, rqs, l, d,
                                                 qd.shape[0], k2)
-    r_bound = max(r_bytes / HBM_BYTES_PER_S, r_flops / FP32_FLOP_PER_S) * 1e3
+    r_bound = bound_ms(r_bytes, r_flops)
     return _row("ivf_scan_topk", "src/repro_torch/csrc/ivf_scan_topk.cu",
                 "src/repro/kernels/ivf_scan.py:332",
                 kernel_errs["ivf_scan_topk"], ms, plain, nbytes, flops,
@@ -2465,22 +2506,50 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
 NO_PATH = ("ivf_scan_clustermajor", "ivf_scan_q8", "kmeans_mstep")
 
 
-def b6b_row(resident: dict, kernel_errs: dict) -> dict:
-    """B6b on the probed-cluster union of one resident batch (phase 7's
-    first plan): every row of each active cluster against all 32 queries."""
+def b6b_union(cids, mask) -> tuple:
+    """B6b's work on one resident batch plan: the clusters its live probes
+    touch (``active``, A of them) and, for each, the queries that probe it
+    (``qsel``, (A, B) bool)."""
+    import torch
+
+    live = mask & (cids >= 0)
+    active = torch.unique(cids[live]).to(torch.int32).contiguous()
+    qsel = ((cids[None, :, :] == active[:, None, None])
+            & live[None]).any(dim=-1).contiguous()
+    return active, qsel
+
+
+def b6b_times(post, active, qsel, qd) -> dict:
+    """B6b by both timers on (active, qsel), then with every (cluster,
+    query) pair selected at the same shape, and torch.cdist on the blocks
+    g = postings[clamp(active)] gathered beforehand."""
     import torch
 
     from repro_torch.kernels import ivf_scan as scan
 
+    every = torch.ones_like(qsel)
+    g = post[active.long().clamp(0, post.shape[0] - 1)].contiguous()
+    return {
+        "union": time_two_ways(lambda: scan.ivf_scan_clustermajor_cuda(
+            post, active, qsel, qd), n=100),
+        "all_selected": time_two_ways(lambda: scan.ivf_scan_clustermajor_cuda(
+            post, active, every, qd), n=100),
+        "cdist": time_two_ways(lambda: torch.cdist(g, qd[None]), n=100)}
+
+
+def b6b_row(resident: dict, kernel_errs: dict) -> dict:
+    """B6b on the probed-cluster union of one resident batch (phase 7's
+    first plan): every row of each active cluster against all 32 queries,
+    then with every (cluster, query) pair selected at the same shape.  The
+    yardstick is torch.cdist on the blocks gathered beforehand."""
+    from repro_torch.kernels import ivf_scan as scan
+
     cids, mask, qd = resident["plan0"]
     post, _ = resident["index"]
-    live = mask & (cids >= 0)
-    active = torch.unique(cids[live]).to(torch.int32).contiguous()
-    qsel = ((cids[None, :, :] == active[:, None, None])
-            & live[None]).any(dim=-1).contiguous()           # (A, B)
+    active, qsel = b6b_union(cids, mask)
     qd = qd.contiguous()
-    t = time_two_ways(lambda: scan.ivf_scan_clustermajor_cuda(
-        post, active, qsel, qd), n=100)
+    times = b6b_times(post, active, qsel, qd)
+    t, dense, lib = times["union"], times["all_selected"], times["cdist"]
     plain = time_ms(lambda: scan.ivf_scan_clustermajor_plain(
         post, active, qsel, qd), n=10)
     a_n = active.numel()
@@ -2489,41 +2558,90 @@ def b6b_row(resident: dict, kernel_errs: dict) -> dict:
     nbytes = a_n * l * d * 4 + b * d * 4 + a_n * 4 + a_n * b \
         + a_n * l * b * 4
     flops = a_n * l * b * 2 * d + a_n * l * 2 * d + b * 2 * d
+    log(f"[times] B6b resident union A={a_n}: {t['queued']:.5f} ms device, "
+        f"all pairs selected {dense['queued']:.5f} ms, torch.cdist on the "
+        f"gathered blocks {lib['queued']:.5f} ms (device)")
     return _row("ivf_scan_clustermajor",
                 "src/repro_torch/csrc/ivf_scan_clustermajor.cu",
                 "src/repro/kernels/ivf_scan.py:160",
                 kernel_errs["ivf_scan_clustermajor"], t["events"], plain,
-                nbytes, flops, "no single PyTorch call gathers the active "
-                "clusters and masks the unselected (cluster, query) pairs",
+                nbytes, flops, "torch.cdist(g, queries[None]) on the blocks "
+                "g = postings[clamp(active)] gathered beforehand: Euclidean, "
+                "not squared, no gather and no mask",
                 f"resident batch union: A={a_n} L={l} D={d} B={b} "
-                f"selected_pairs={int(qsel.sum())}", device_ms=t["queued"])
+                f"selected_pairs={int(qsel.sum())}", device_ms=t["queued"],
+                library_ms=lib["events"], library_device_ms=lib["queued"],
+                all_selected={"ms": dense["events"],
+                              "device_ms": dense["queued"],
+                              "selected_pairs": a_n * b})
 
 
-def b7_row(resident: dict, kernel_errs: dict) -> dict:
-    """B7 on one resident batch (phase 7's first plan) over the q8
-    payload of the resident index."""
-    from repro_torch.kernels import ivf_scan_q8 as q8m
-
-    cids, mask, qd = resident["plan0"]
-    qi = resident["qindex"]
-    args = (qi.q8, qi.qscale, qi.qnorm2, qi.centroids, cids.contiguous(),
-            mask.contiguous(), qd.contiguous())
-    t = time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*args), n=100)
-    plain = time_ms(lambda: q8m.ivf_scan_q8_plain(*args), n=10)
-    _, l, d = qi.q8.shape
+def b7_work(cids, mask, l: int, d: int) -> tuple:
+    """B7's bytes (each distinct probed block, its norms, centroid and
+    scale once, the queries, the plan and the output) and operations."""
     b, p = cids.shape
     live = int(mask.sum())
     uniq = int(cids[mask].unique().numel())
     nbytes = uniq * (l * d + l * 4 + d * 4 + 4) + b * d * 4 + b * p * 5 \
         + b * p * l * 4
-    flops = live * (l * (2 * d + 3) + 3 * d)
+    return nbytes, live * (l * (2 * d + 3) + 3 * d), live, uniq
+
+
+def b7_args(qi, cids, mask, qd) -> tuple:
+    """B7's arguments for one resident batch plan over the q8 payload
+    ``qi`` of the resident index."""
+    return (qi.q8, qi.qscale, qi.qnorm2, qi.centroids, cids.contiguous(),
+            mask.contiguous(), qd.contiguous())
+
+
+def b7_row(resident: dict, kernel_errs: dict) -> dict:
+    """B7 on one resident batch (phase 7's first plan) over the q8
+    payload of the resident index, in the variant its codes take and on a
+    copy of them at 16k+4 bytes (vec4), and on seeded inputs at a batch of
+    several waves (B 256, P 16, C 8192)."""
+    from repro_torch.kernels import ivf_scan_q8 as q8m
+
+    cids, mask, qd = resident["plan0"]
+    qi = resident["qindex"]
+    args = b7_args(qi, cids, mask, qd)
+    t = time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*args), n=100)
+    v4 = (vec4_codes(args[0]),) + args[1:]
+    vec4 = time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*v4), n=100)
+    plain = time_ms(lambda: q8m.ivf_scan_q8_plain(*args), n=10)
+    _, l, d = qi.q8.shape
+    b, p = cids.shape
+    nbytes, flops, live, uniq = b7_work(cids, mask, l, d)
+    big = b7_waves()
     return _row("ivf_scan_q8", "src/repro_torch/csrc/ivf_scan_q8_legacy.cu",
                 "src/repro/kernels/ivf_scan_q8.py:83",
                 kernel_errs["ivf_scan_q8"], t["events"], plain, nbytes,
                 flops, "no single PyTorch call gathers each query's probed "
                 "int8 blocks and computes the residual-form distances",
                 f"resident batch: B={b} P={p} C={qi.q8.shape[0]} live={live} "
-                f"unique_clusters={uniq} L={l} D={d}", device_ms=t["queued"])
+                f"unique_clusters={uniq} L={l} D={d} variant="
+                f"{q8m.ivf_scan_q8_variant(d, qi.q8.data_ptr())}",
+                device_ms=t["queued"], vec4_device_ms=vec4["queued"],
+                waves=big)
+
+
+B7_WAVES = (8192, 128, 128, 256, 16)     # C, L, D, B, P
+
+
+def b7_waves() -> dict:
+    """B7 at a batch that is not one wave, on seeded q8_legacy_inputs."""
+    from repro_torch.kernels import ivf_scan_q8 as q8m
+
+    c, l, d, b, p = B7_WAVES
+    args = q8_legacy_inputs(c, l, d, b, p, seed=1807)
+    t = time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*args), n=50)
+    nbytes, flops, live, uniq = b7_work(args[4], args[5], l, d)
+    bound = bound_ms(nbytes, flops)
+    out = {"ms": t["events"], "device_ms": t["queued"], "bound_ms": bound,
+           "shape": f"B={b} P={p} C={c} live={live} unique_clusters={uniq} "
+                    f"L={l} D={d}"}
+    log(f"[times] B7 at {out['shape']}: {t['queued']:.5f} ms device, bound "
+        f"{bound:.5f} ms ({bound / t['queued']:.1%})")
+    return out
 
 
 def b5_row(built: dict, kernel_errs: dict) -> dict:
@@ -2554,9 +2672,14 @@ def b5_row(built: dict, kernel_errs: dict) -> dict:
                 unfused_build=b5_unfused_shapes())
 
 
+def bound_ms(nbytes: int, flops: int) -> float:
+    """The least time the card could take: the bytes over its memory rate
+    or the fp32 operations over its peak, whichever is longer."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+
+
 def b5_bound_ms(n: int, m: int, d: int) -> float:
-    return max(((n + m) * d * 4 + n * m * 4) / HBM_BYTES_PER_S,
-               2 * n * m * d / FP32_FLOP_PER_S) * 1e3
+    return bound_ms((n + m) * d * 4 + n * m * 4, 2 * n * m * d)
 
 
 def b5_shape_times(shapes: dict, launch, variant_of=None,

@@ -1,6 +1,7 @@
-// Helpers shared by the port's CUDA sources: launch checking, the k-means
-// argmin order and a single-block exclusive scan (used for CSR offsets and
-// empty-cluster ranks).
+// Helpers shared by the port's CUDA sources: launch checking, the cp.async
+// copies, the k-means argmin order, a single-block exclusive scan (used for
+// CSR offsets and empty-cluster ranks) and a block's store of a run of
+// floats.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +17,33 @@
 namespace repro {
 
 constexpr int kScanThreads = 1024;
+
+// Asynchronous copies from device memory into shared memory: 16 bytes (both
+// addresses 16-byte aligned; bypasses L1) or 4 bytes.  Each thread's copies
+// are grouped by commit; wait<N> returns once at most N of its groups are
+// still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // The order of jnp.argmin / torch.argmin over (distance, index) pairs: a NaN
 // comes before every number (the first NaN wins), then the smaller distance,
@@ -65,6 +93,26 @@ __device__ void block_exclusive_scan(F value, int* __restrict__ out, int n) {
     run += value(i);
   }
   if (t == kScanThreads - 1) out[n] = part[t];
+}
+
+// dst[j] = value(j) for j in [0, n), written by all threads of the block:
+// 16-byte stores over the run's 16-byte-aligned interior (consecutive
+// threads on consecutive addresses), 4-byte stores at its two edges.
+template <typename F>
+__device__ __forceinline__ void block_store_run(float* __restrict__ dst,
+                                                int n, F value) {
+  const int head =
+      min(n, (int)(((16 - ((uintptr_t)dst & 15)) & 15) >> 2));
+  const int body = (n - head) >> 2;
+  const int tail = head + 4 * body;
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = value(t);
+  if (t < n - tail) dst[tail + t] = value(tail + t);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = t; i < body; i += blockDim.x) {
+    const int j = head + 4 * i;
+    d4[i] = make_float4(value(j), value(j + 1), value(j + 2), value(j + 3));
+  }
 }
 
 }  // namespace repro

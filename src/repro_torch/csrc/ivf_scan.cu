@@ -38,21 +38,9 @@ constexpr int kStageBytes = 20 * 1024;   // a chunk of rows; 2 chunks + the
                                          // query stay under 48 KB
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // row stride in float4 of a chunk whose rows are read by groups of g
 // threads: at least d4, and congruent to g mod 8 (0 for g >= 8)

@@ -74,21 +74,9 @@ __host__ __device__ inline int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // Squared norm of each row; one warp per row, fixed reduction order.  With
 // col_bad, also counts each column's non-finite entries (rare: one integer

@@ -16,29 +16,10 @@ constexpr int kMergeThreads = 128;
 constexpr int kMaxPartials = 12 * 1024;  // partials x k2 staged by the merge
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* smem, const T* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 // Worst (largest distance) buffer slot; ties go to the highest slot index.
 __device__ __forceinline__ void find_worst(const float* bd, int k2, int lane,

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "ivf_scan_launch": [_P] * 5 + [_I] * 5 + [_P],
     "pairwise_l2_launch": [_P] * 4 + [_I] * 5 + [_P],
     "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "ivf_scan_q8_legacy_launch": [_P] * 8 + [_I] * 5 + [_P],
+    "ivf_scan_q8_legacy_launch": [_P] * 8 + [_I] * 6 + [_P],
     "kmeans_batched_launch": [_P] * 9 + [_I] * 3 + [_P],
     "repro_cuda_error_string": [_I],
 }

@@ -17,7 +17,9 @@
 * B6b ``ivf_scan_clustermajor``, the cluster-major legacy scan: (A, L, B)
   distances from every row of each active cluster to every query,
   unselected (cluster, query) pairs +inf.  :func:`ivf_scan_clustermajor_cuda`
-  launches ``csrc/ivf_scan_clustermajor.cu``;
+  launches ``csrc/ivf_scan_clustermajor.cu`` (a block per (cluster, 32
+  queries) streams the cluster's rows, computes the selected pairs only
+  and writes its slab, +inf elsewhere, with 16-byte stores);
   :func:`ivf_scan_clustermajor_plain` is the plain version.
 
 ``kernels/ops.py`` chooses between kernel and plain version by the device

@@ -20,8 +20,10 @@ with the per-slot ``s^2 ||r8||^2`` precomputed (``norm2``).
   ``extract_topk`` merge rule.  :func:`query_plan_plain` is the plan the
   kernel builds, in torch.
 * :func:`ivf_scan_q8_cuda` launches B7 (``csrc/ivf_scan_q8_legacy.cu``: one
-  block per (query, probe), (B, P, L) distances, masked probes +inf);
-  :func:`ivf_scan_q8_plain` is the arithmetic of
+  block per (query, probe), all of its code loads in flight at once, (B, P,
+  L) distances, masked probes +inf) in the variant that
+  :func:`ivf_scan_q8_variant` picks by shape; :func:`ivf_scan_q8_plain` is
+  the arithmetic of
   ``core.quantize.ivf_scan_quantized``, the reference's own yardstick for
   this kernel.
 
@@ -201,9 +203,20 @@ def ivf_scan_q8_plain(q8, scale, norm2, centroids, cids, mask, queries
                               cids, mask, queries)
 
 
+def ivf_scan_q8_variant(d: int, address: int) -> str:
+    """The kernel variant B7 runs for codes of width D at byte ``address``:
+    "vec16" (16-byte loads, four codes of a row a word, four words a load)
+    when D % 16 == 0 and the codes are 16-byte aligned, so that every row
+    starts on a 16-byte boundary; else "vec4" (4-byte loads).  Both stream
+    any L in batches of at most 1024 rows, so L does not enter the
+    choice."""
+    return "vec16" if d % 16 == 0 and address % 16 == 0 else "vec4"
+
+
 def ivf_scan_q8_cuda(q8, scale, norm2, centroids, cids, mask, queries
                      ) -> torch.Tensor:
-    """Launch B7 on the tensors' CUDA device (current stream).
+    """Launch B7 on the tensors' CUDA device (current stream), in the
+    variant :func:`ivf_scan_q8_variant` picks.
 
     Takes q8 (C, L, D) int8, scale (C, 1, 1) f32, norm2 (C, L) f32,
     centroids (C, D) f32, cids (B, P) int32 (clamped to [0, C) in the
@@ -235,6 +248,7 @@ def ivf_scan_q8_cuda(q8, scale, norm2, centroids, cids, mask, queries
     need(queries.shape == (b, d), "queries shape")
     need(d % 4 == 0 and 0 < d <= MAX_D, f"D={d} (multiple of 4, <= {MAX_D})")
     need(q8.data_ptr() % 4 == 0, "q8 not 4-byte aligned")
+    variant = ivf_scan_q8_variant(d, q8.data_ptr())
     out = torch.empty((b, p, l), dtype=torch.float32, device=dev)
     if b * p * l == 0:
         return out
@@ -242,7 +256,7 @@ def ivf_scan_q8_cuda(q8, scale, norm2, centroids, cids, mask, queries
         q8.data_ptr(), scale.data_ptr(), norm2.data_ptr(),
         centroids.data_ptr(), cids.data_ptr(), mask.data_ptr(),
         queries.data_ptr(), out.data_ptr(), b, c, p, l, d,
-        cuda_lib.stream_handle(dev))
+        int(variant == "vec16"), cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "ivf_scan_q8")
     cuda_lib.LAUNCHES.add("ivf_scan_q8")
     return out

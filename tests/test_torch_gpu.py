@@ -521,19 +521,33 @@ def test_unfused_build_on_card_launches_pairwise_l2(cuda, tmp_path):
     assert rep.replication >= 1.0
 
 
-def _cmajor_case(c, l, d, b, a_n, seed, nan_row=False):
+def _cmajor_case(c, l, d, b, a_n, seed, nan_row=False, sel=0.6):
     """Postings, an active-cluster list with duplicates and out-of-range
-    ids, a selection mask and queries; ``nan_row`` puts a NaN in one row of
-    an active cluster."""
+    ids, a selection mask (each pair selected with probability ``sel``) and
+    queries; ``nan_row`` puts a NaN in one row of an active cluster."""
     rng = np.random.default_rng(seed)
     post, _, _, _, q = f32_case(c, l, d, b, 1, seed=seed)
     active = rng.integers(-2, c + 2, size=a_n).astype(np.int32)
     active[-1] = active[0]
-    qsel = rng.random((a_n, b)) < 0.6
+    qsel = rng.random((a_n, b)) < sel
     if nan_row:
         post[np.clip(active[0], 0, c - 1), l // 2, d // 3] = np.nan
         qsel[0] = True
     return post, active, qsel, q
+
+
+def _check_clustermajor(cuda, arrays):
+    from repro_torch.kernels import ivf_scan as tscan
+
+    arrays = _dev(arrays, cuda)
+    got = tscan.ivf_scan_clustermajor_cuda(*arrays)
+    want = tscan.ivf_scan_clustermajor_plain(*arrays)
+    torch.cuda.synchronize()
+    qsel = arrays[2]
+    assert (got.permute(0, 2, 1)[~qsel] == float("inf")).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+    return got
 
 
 CMAJOR_CASES = [  # (C, L, D, B, A, nan_row)
@@ -546,19 +560,89 @@ CMAJOR_CASES = [  # (C, L, D, B, A, nan_row)
 
 @pytest.mark.parametrize("case", CMAJOR_CASES)
 def test_clustermajor_kernel_matches_plain(cuda, case):
+    c, l, d, b, a_n, nan_row = case
+    got = _check_clustermajor(cuda, _cmajor_case(c, l, d, b, a_n, seed=a_n,
+                                                 nan_row=nan_row))
+    assert torch.isnan(got).any() == nan_row
+
+
+CMAJOR_SELECT = {"none": 0.0, "all": 1.0, "sparse": 0.03}
+
+
+@pytest.mark.parametrize("sel", sorted(CMAJOR_SELECT))
+@pytest.mark.parametrize("d", [3, 37, 128, 1024])
+@pytest.mark.parametrize("l", [1, 33, 129])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 100])
+def test_clustermajor_kernel_at_tile_edges(cuda, b, l, d, sel):
+    """B ragged against the 32-lane ballot and the 32-column blocks, L
+    against the 32-row ring chunks, D against 16-byte copies (3, 37: 4-byte
+    copies into zero-padded rows) and the 128-dimension slices, and a
+    selection that is empty, full (every chunk of 32 queries) or sparse."""
+    arrays = _cmajor_case(9, l, d, b, 6, seed=b + l + d,
+                          sel=CMAJOR_SELECT[sel])
+    got = _check_clustermajor(cuda, arrays)
+    if sel == "none":
+        assert (got == float("inf")).all()
+
+
+def test_clustermajor_kernel_keeps_nan_only_where_selected(cuda):
+    """A NaN row that some queries select and others do not: NaN where
+    selected, +inf where not, as the reference's jnp.where gives."""
+    post, active, qsel, q = _cmajor_case(12, 40, 37, 70, 5, seed=8)
+    active[0] = 3
+    post[3, 17, 5] = np.nan
+    qsel[0] = np.arange(70) % 3 == 0
+    got = _check_clustermajor(cuda, (post, active, qsel, q))
+    row = got[0, 17].cpu().numpy()
+    assert np.isnan(row[qsel[0]]).all()
+    assert (row[~qsel[0]] == np.inf).all()
+    assert torch.isfinite(got[0, :17]).any()
+
+
+def test_clustermajor_kernel_deterministic_run_to_run(cuda):
     from repro_torch.kernels import ivf_scan as tscan
 
-    c, l, d, b, a_n, nan_row = case
-    arrays = _dev(_cmajor_case(c, l, d, b, a_n, seed=a_n, nan_row=nan_row),
+    arrays = _dev(_cmajor_case(300, 128, 128, 100, 200, seed=4, sel=0.3),
                   cuda)
-    got = tscan.ivf_scan_clustermajor_cuda(*arrays)
-    want = tscan.ivf_scan_clustermajor_plain(*arrays)
+    first = tscan.ivf_scan_clustermajor_cuda(*arrays)
+    again = tscan.ivf_scan_clustermajor_cuda(*arrays)
     torch.cuda.synchronize()
-    qsel = arrays[2]
-    assert (got.permute(0, 2, 1)[~qsel] == float("inf")).all()
-    assert torch.isnan(got).any() == nan_row
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+    assert torch.equal(first, again)
+
+
+def _q8_legacy_case(c, l, d, b, p, masked, nan_norm, seed):
+    q8, scale, norm2, cents, _, cids, mask, q = q8_case(
+        c, l, d, b, p, seed=seed, dead=0.2, masked=masked, dup=True)
+    cids[0, -1] = c + 5                   # out of range: clamped to C - 1
+    cids[-1, 0] = -3                      # out of range: clamped to 0
+    if nan_norm:
+        mask[1, 2] = True
+        norm2[cids[1, 2], l // 2] = np.nan
+    return q8, scale, norm2, cents, cids, mask, q
+
+
+def _vec4_view(q8):
+    """A copy of ``q8`` 4 bytes past a 16-byte boundary: a contiguous view
+    that ``ivf_scan_q8_variant`` sends to the vec4 variant at any shape."""
+    buf = torch.empty(q8.numel() + 16, dtype=torch.int8, device=q8.device)
+    start = (4 - buf.data_ptr()) % 16
+    view = buf[start:start + q8.numel()].view(q8.shape)
+    view.copy_(q8)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _check_q8_legacy(arrays):
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    got = tq8.ivf_scan_q8_cuda(*arrays)
+    want = tq8.ivf_scan_q8_plain(*arrays)
+    torch.cuda.synchronize()
+    m = arrays[5]
+    assert (got[~m] == float("inf")).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
                                equal_nan=True)
+    return got
 
 
 Q8_LEGACY_CASES = [  # (C, L, D, B, P, masked, nan_norm)
@@ -566,7 +650,8 @@ Q8_LEGACY_CASES = [  # (C, L, D, B, P, masked, nan_norm)
     (40, 48, 24, 13, 7, 0.3, True),      # ragged B, NaN in a live norm
     (20, 64, 1024, 3, 4, 0.0, False),    # D 1024
     (300, 128, 128, 32, 16, 0.1, False),  # one resident batch
-]
+] + [(12, l, d, 3, 4, 0.3, False)       # every variant's row and batch edges
+     for l in (1, 33, 128, 1024) for d in (4, 12, 16, 128, 1024)]
 
 
 @pytest.mark.parametrize("case", Q8_LEGACY_CASES)
@@ -574,22 +659,42 @@ def test_q8_legacy_kernel_matches_plain(cuda, case):
     from repro_torch.kernels import ivf_scan_q8 as tq8
 
     c, l, d, b, p, masked, nan_norm = case
-    q8, scale, norm2, cents, ids, cids, mask, q = q8_case(
-        c, l, d, b, p, seed=c + 1, dead=0.2, masked=masked, dup=True)
-    cids[0, -1] = c + 5                   # out of range: clamped to C - 1
-    cids[-1, 0] = -3                      # out of range: clamped to 0
-    if nan_norm:
-        mask[1, 2] = True
-        norm2[cids[1, 2], l // 2] = np.nan
-    arrays = _dev((q8, scale, norm2, cents, cids, mask, q), cuda)
-    got = tq8.ivf_scan_q8_cuda(*arrays)
-    want = tq8.ivf_scan_q8_plain(*arrays)
-    torch.cuda.synchronize()
-    m = arrays[5]
-    assert (got[~m] == float("inf")).all()
+    arrays = _dev(_q8_legacy_case(*case, seed=c + 1), cuda)
+    got = _check_q8_legacy(arrays)
     assert torch.isnan(got).any() == nan_norm
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
-                               equal_nan=True)
+    if tq8.ivf_scan_q8_variant(d, arrays[0].data_ptr()) == "vec16":
+        # the other variant takes every shape: the same distances
+        vec4 = [_vec4_view(arrays[0]), *arrays[1:]]
+        torch.testing.assert_close(_check_q8_legacy(vec4), got,
+                                   rtol=1e-4, atol=1e-3, equal_nan=True)
+
+
+def test_q8_legacy_kernel_on_codes_not_16_byte_aligned(cuda):
+    """A q8 view whose base is 4-byte but not 16-byte aligned takes the
+    4-byte variant and still matches, as does the aligned original in the
+    16-byte one."""
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    q8, *rest = _dev(_q8_legacy_case(30, 128, 128, 6, 5, 0.2, False,
+                                     seed=3), cuda)
+    view = _vec4_view(q8)
+    assert tq8.ivf_scan_q8_variant(128, view.data_ptr()) == "vec4"
+    assert tq8.ivf_scan_q8_variant(128, q8.data_ptr()) == "vec16"
+    got = _check_q8_legacy([view, *rest])
+    torch.testing.assert_close(got, _check_q8_legacy([q8, *rest]),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_q8_legacy_kernel_deterministic_run_to_run(cuda):
+    from repro_torch.kernels import ivf_scan_q8 as tq8
+
+    arrays = _dev(_q8_legacy_case(300, 128, 128, 32, 16, 0.1, False,
+                                  seed=5), cuda)
+    for q8 in (arrays[0], _vec4_view(arrays[0])):  # vec16, then vec4
+        first = tq8.ivf_scan_q8_cuda(q8, *arrays[1:])
+        again = tq8.ivf_scan_q8_cuda(q8, *arrays[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("kernel", ["ivf_scan", "pairwise_l2"])

@@ -63,6 +63,49 @@ def test_clustermajor_plain_matches_jax_oracle_and_keeps_nan():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_clustermajor_plain_matches_jax_kernel_at_selection_edges():
+    """An all-false qsel row, an all-true one, and a NaN row that some
+    queries select and others do not: NaN where selected, +inf where not,
+    in the plain version as in the Pallas kernel."""
+    from repro.kernels.ivf_scan import ivf_scan_clustermajor as jax_kernel
+    from repro_torch.kernels.ivf_scan import ivf_scan_clustermajor_plain
+
+    post, active, qsel, q = _cmajor_inputs(11, 9, 13, 10, 5, seed=4)
+    active[:3] = (2, 5, 7)
+    qsel[0] = False
+    qsel[1] = True
+    post[7, 4, 6] = np.nan
+    qsel[2] = np.arange(10) % 2 == 0
+    want = np.asarray(jax_kernel(jnp.asarray(post), jnp.asarray(active),
+                                 jnp.asarray(qsel), jnp.asarray(q),
+                                 interpret=True))
+    got = ivf_scan_clustermajor_plain(
+        *(torch.from_numpy(a) for a in (post, active, qsel, q))).numpy()
+    assert (got[0] == np.inf).all()
+    assert np.isfinite(got[1]).all()
+    assert np.isnan(got[2, 4][qsel[2]]).all()
+    assert (got[2, 4][~qsel[2]] == np.inf).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,address,variant", [
+    (128, 0, "vec16"),               # the resident shape, aligned
+    (128, 4, "vec4"),                # 4-byte but not 16-byte aligned
+    (128, 8, "vec4"),
+    (112, 0, "vec16"),               # D % 16 == 0 without a power of two
+    (120, 0, "vec4"),                # D % 16 == 8
+    (4, 0, "vec4"),                  # the narrowest row
+    (1024, 16, "vec16"),             # the widest row
+    (16, 48, "vec16"),               # the narrowest vec16 row
+    (12, 48, "vec4"),
+])
+def test_q8_legacy_variant_is_a_pure_function_of_shape(d, address, variant):
+    from repro_torch.kernels.ivf_scan_q8 import ivf_scan_q8_variant
+
+    assert ivf_scan_q8_variant(d, address) == variant
+
+
 @pytest.mark.parametrize("c,l,d,b,p,masked", [
     (24, 16, 24, 4, 6, 0.3),         # the shape of tests/test_quantize.py
     (40, 48, 32, 13, 7, 0.4),        # ragged B

@@ -25,9 +25,13 @@ script's, so every tree is read with the same yardstick:
   summed over every launch of the tree's own unfused 100k build (phase 10's
   configuration, the shapes recorded as it runs): each distinct shape timed
   both ways and weighted by its launches;
-- B6a (``ivf_scan``) through ``ivf_scan_cuda`` on phase 7's first resident
+- B6a (``ivf_scan``), B6b (``ivf_scan_clustermajor``) and B7
+  (``ivf_scan_q8``) through their wrappers on phase 7's first resident
   batch (the tree's own 1M index and LLSP plan for the first 32 of phase
-  4's queries);
+  4's queries): B6b on the batch's probed-cluster union, then with every
+  (cluster, query) pair selected, beside ``torch.cdist`` on the gathered
+  blocks; B7 on the index's q8 payload, and at chip_smoke's ``B7_WAVES``
+  (B 256, P 16, C 8192) on seeded inputs;
 - the 1M build of the tree's own phase 3 and its ``index_content_hash``,
   beside the unfused and the fused 100k builds' stage seconds and hashes;
 - run (a) of the tree's phase 11 (engine, quality stack on, one 6 s
@@ -162,13 +166,18 @@ def unfused_builds(cs, ys, work: str) -> dict:
     return out
 
 
-def b6a_times(cs, ys, built) -> dict:
-    """B6a on phase 7's first resident batch of the tree's 1M index."""
+def resident_scan_times(cs, ys, built) -> dict:
+    """B6a, B6b and B7 on phase 7's first resident batch of the tree's 1M
+    index (B6b on the batch's probed-cluster union, then with every pair
+    selected, beside torch.cdist on the gathered blocks; B7 on the q8
+    payload), and B7 at this checkout's ``B7_WAVES`` on seeded inputs."""
     import torch
 
+    from repro_torch.core.quantize import attach_quantized
     from repro_torch.core.search import SearchConfig
     from repro_torch.data.synthetic import make_queries
     from repro_torch.kernels import ivf_scan as scan
+    from repro_torch.kernels import ivf_scan_q8 as q8m
 
     queries, _ = make_queries(built["spec"], cs.N_BATCHES * cs.BATCH, seed=7)
     qd = torch.from_numpy(queries[:cs.BATCH]).to(cs.DEVICE)
@@ -177,11 +186,21 @@ def b6a_times(cs, ys, built) -> dict:
     cids, mask = cs.resident_plan(index, built["llsp"], qd, tk,
                                   SearchConfig(**cs.SERVE_CFG))
     post = index.postings
-    t = ys.time_two_ways(lambda: scan.ivf_scan_cuda(post, cids, mask, qd),
-                         n=100)
-    t["live_probes"] = int(mask.sum())
-    t["unique_clusters"] = int(cids[mask].unique().numel())
-    return t
+    out = {"ivf_scan": ys.time_two_ways(
+        lambda: scan.ivf_scan_cuda(post, cids, mask, qd), n=100)}
+    out["ivf_scan"]["live_probes"] = int(mask.sum())
+    out["ivf_scan"]["unique_clusters"] = int(cids[mask].unique().numel())
+
+    active, qsel = ys.b6b_union(cids, mask)
+    out["ivf_scan_clustermajor"] = dict(
+        ys.b6b_times(post, active, qsel, qd.contiguous()),
+        A=active.numel(), selected_pairs=int(qsel.sum()))
+    args = ys.b7_args(attach_quantized(index), cids, mask, qd)
+    out["ivf_scan_q8"] = {
+        "resident": ys.time_two_ways(lambda: q8m.ivf_scan_q8_cuda(*args),
+                                     n=100),
+        "waves": ys.b7_waves()}
+    return out
 
 
 def run_one(tree: str, rate: float) -> dict:
@@ -212,7 +231,7 @@ def run_one(tree: str, rate: float) -> dict:
     built = cs.phase_build(work)
     out["build_s"] = built["build_s"]
     out["index_content_hash"] = index_content_hash(built["index"])[:16]
-    out["kernels"]["ivf_scan"] = b6a_times(cs, ys, built)
+    out["kernels"].update(resident_scan_times(cs, ys, built))
     # run (a) alone, offered ``rate`` q/s: phase_engine offers 0.25x the
     # "QPS" it is handed
     cs.ENGINE_RUNS = tuple(r for r in cs.ENGINE_RUNS if r[0] == "a")
