@@ -29,13 +29,22 @@ Phases, each of which raises on failure:
    argmin/min bit-equal to K2's assign/min_dist, at the unfused build's
    shapes and on both sides of the narrow/wide threshold; B6a at the edges
    of its ring of row chunks (L 1, 33, 129, 1024; D 4, 36, 1024) with
-   out-of-range cluster ids and a fully masked query;
+   out-of-range cluster ids and a fully masked query; K3 bit-equal with
+   int32 and f32 counts, none, some and all clusters empty, K' above and
+   at the number of empty clusters, counts above 2^24, 4-byte words (D % 4
+   != 0, a misaligned copy) and K 1 to 20,614, each call one launch (the
+   profiler counts one kernel) and one allocation;
 3. build: builds a SIFT1M-sized index (1,000,000 x 128, the
    ann-benchmarks sift-128-euclidean base size) with the port's own
    ``build_index`` (launch serve settings: max_cluster_size 96,
    cluster_len 128, LLSP levels (8, 16), 8 ratio features); prints stage
    1's lockstep steps, K23's device time, the host's bookkeeping time and
-   the index's ``index_content_hash`` (16 hex digits);
+   the index's ``index_content_hash`` (16 hex digits); stage 2 (the
+   streamed ``ShardAssignPipeline``) split by shard stamps into load,
+   stream, assign and harvest, with its overlap (some shard's load must
+   land under the previous shard's assign) and ``build_postings``' time;
+   stage 2 again on the elastic-task branch from the same stage-1
+   centroids must hash the same;
    then stage 1 per node on the card (K2 + sort + K3 per splitter node and
    per oversized cell, as before K23) must give the same centroids bit for
    bit, and on the first 20 chunks the lockstep splitter is timed beside
@@ -46,7 +55,13 @@ Phases, each of which raises on failure:
    dispatches; each batch's scan window split into host spans (stamps)
    and device time (torch.profiler) on a ``[serve] scan window`` line;
 5. parity: a subset of those batches through the same pipeline on the CPU
-   (plain versions) must give the same ids up to ties;
+   (plain versions) must give the same ids up to ties; then (4b) the
+   freshness merge on phase 4's pipeline: a ``LiveFreshState`` of 65,536
+   delta rows with 4,096 seeded inserts and 4,096 deleted main ids, the 64
+   batches with and without the merge, and a batch of self-queries (each
+   must find its minted id at rank 0, no tombstoned id may come back,
+   recall@10 against brute force over live main + delta >= 0.95 x the
+   probe ceiling);
 6. kernel times at the main paths' shapes, each two ways (CUDA events
    around a run of launches as issued, ``ms``, and the same launches
    queued behind a sleep kernel, ``device_ms``), printed as one JSON line
@@ -69,16 +84,18 @@ Phases, each of which raises on failure:
    CPU (plain versions);
 10. unfused build: ``BuildConfig(fused_assign=False)`` (B5 + host float64
     M-step) at 100,000 vectors, served through the q8 pipeline, beside a
-    fused build at the same size;
+    fused build at the same size, which, with one shard checkpoint
+    deleted, must resume (``stage2:partial``) to the same hash;
 11. engine: phase 3's index deployed as ``launch/serve.py`` deploys it (arena
     extents, striping, replica map, IndexMeta, q8 pipeline with the flash
     re-rank) and served through ``ServeEngine`` + ``DynamicBatcher``
     (depth 2, locality grouping, deadline degrade) with the quality, SLO,
     harvest and trace stack, under two open-loop traces at 0.25x and 0.75x
     phase 4's QPS (the second with a 50 ms deadline), then both traces once
-    more without the quality stack; nothing lost, K1 once per scan
-    dispatch, ids through the engine equal to ``run_sequential``'s up to
-    ties;
+    more without the quality stack, the first of them with an
+    ``UpdateLane`` streaming seeded inserts (insert-to-visible p50 and
+    p99); nothing lost, K1 once per scan dispatch, ids through the engine
+    equal to ``run_sequential``'s up to ties;
 12. the CLI: ``python -m repro_torch.launch.serve`` with the reference's
     defaults, two indexes, the shard-failure drill and a rebuild + swap.
 
@@ -395,18 +412,55 @@ def check_k2(case: str, x, cents) -> float:
     return max(md_err, s_err)
 
 
-def check_k3(case: str, sums, counts, reseed) -> float:
+def check_k3(case: str, sums, counts, reseed, *, variant=None) -> float:
+    """K3 bit-equal to its plain version, in one launch that allocates
+    nothing but its output; ``variant`` is the word width it must take."""
     import torch
 
     from repro_torch.kernels import kmeans_mstep as mm
+    from repro_torch.kernels.cuda_lib import LAUNCHES
 
-    got = mm.kmeans_mstep_cuda(sums, counts, reseed)
+    got_variant = mm.kmeans_mstep_variant(
+        sums.shape[1], sums.data_ptr(), reseed.data_ptr(),
+        torch.empty(1, device=sums.device).data_ptr())
+    if variant is not None and got_variant != variant:
+        raise AssertionError(f"K3 {case}: variant {got_variant}, "
+                             f"wanted {variant}")
     want = mm.kmeans_mstep_plain(sums, counts, reseed)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    n0 = LAUNCHES.snapshot()["kmeans_mstep"]
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    got = mm.kmeans_mstep_cuda(sums, counts, reseed)
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) \
+        - a0
+    torch.cuda.synchronize()
+    if LAUNCHES.snapshot()["kmeans_mstep"] - n0 != 1 or allocs != 1:
+        raise AssertionError(f"K3 {case}: {allocs} allocations (wanted the "
+                             f"output alone)")
+    if not torch.equal(got.isnan(), want.isnan()) or not torch.equal(
+            torch.nan_to_num(got), torch.nan_to_num(want)):
         raise AssertionError(f"K3 {case}: not bit-equal to the plain version")
-    log(f"[kernels] K3 {case}: ok (bit-equal)")
+    log(f"[kernels] K3 {case}: ok (bit-equal, {got_variant}, one launch, "
+        f"one allocation)")
     return 0.0
+
+
+def k3_launch_count(sums, counts, reseed) -> int:
+    """Kernels the card ran in one K3 call, by torch.profiler: one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import kmeans_mstep as mm
+
+    mm.kmeans_mstep_cuda(sums, counts, reseed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            mm.kmeans_mstep_cuda(sums, counts, reseed)
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total", 0.0) > 0)
+    return n // 4
 
 
 def check_b2(case: str, k2: int, *args, chunks=(None,)) -> float:
@@ -762,18 +816,36 @@ def check_kmeans_nan(case: str, got, want) -> None:
         f"min distances kept, assignments equal")
 
 
-def k3_inputs(k, d, n_empty, *, seed, int_counts=False):
+def k3_inputs(k, d, n_empty, *, seed, int_counts=False, k_reseed=None,
+              big=False):
+    """K3's inputs: sums (K, D), counts (K,) int32 or f32 with ``n_empty``
+    zeros (``big``: the others above 2^24, where f32 rounds), and reseed
+    (K', D) with K' = ``k_reseed`` (K by default), on the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     sums = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32))
-    counts = rng.integers(1, 50, size=k)
+    lo, hi = ((1 << 24) + 1, 1 << 30) if big else (1, 50)
+    counts = rng.integers(lo, hi, size=k)
     counts[rng.choice(k, size=n_empty, replace=False)] = 0
     counts = torch.from_numpy(counts.astype(
         np.int32 if int_counts else np.float32))
-    reseed = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32))
+    reseed = torch.from_numpy(rng.normal(
+        size=(k if k_reseed is None else k_reseed, d)).astype(np.float32))
     return sums.cuda(), counts.cuda(), reseed.cuda()
+
+
+def k3_misaligned(sums):
+    """A copy of ``sums`` at a 4-byte offset from a 16-byte boundary: K3
+    must take its 4-byte words there."""
+    import torch
+
+    buf = torch.empty(sums.numel() + 1, dtype=torch.float32,
+                      device=sums.device)
+    view = buf[1:].view(sums.shape)
+    view.copy_(sums)
+    return view
 
 
 def phase_kernels() -> dict:
@@ -899,13 +971,42 @@ def phase_kernels() -> dict:
                        torch.from_numpy(xg).cuda(),
                        torch.from_numpy(cg).cuda())
 
-    for case, args in (("main K8 D128", k3_inputs(8, 128, 2, seed=11)),
-                       ("K14000 many empty", k3_inputs(14000, 128, 900,
-                                                       seed=12)),
-                       ("int counts K1", k3_inputs(1, 7, 1, seed=13,
-                                                   int_counts=True)),
-                       ("ragged K65 D3", k3_inputs(65, 3, 20, seed=14))):
-        check_k3(case, *args)
+    # K3: int32 and f32 counts; none, some and all empty; K' above and at
+    # the number of empty clusters; 4-byte words (D % 4 != 0, a misaligned
+    # copy); counts above 2^24; K 1, 2, 8, 2,048 and 20,614
+    k3_cases = [
+        ("K8 D128 f32 counts", k3_inputs(8, 128, 2, seed=11), "vec16"),
+        ("K8 D128 int32 counts", k3_inputs(8, 128, 2, seed=11,
+                                           int_counts=True), "vec16"),
+        ("K2 D128 one empty", k3_inputs(2, 128, 1, seed=15,
+                                        int_counts=True), "vec16"),
+        ("K1 D7 all empty", k3_inputs(1, 7, 1, seed=13, int_counts=True),
+         "vec4"),
+        ("K65 D3 some empty", k3_inputs(65, 3, 20, seed=14), "vec4"),
+        ("K37 D37 none empty", k3_inputs(37, 37, 0, seed=16), "vec4"),
+        ("K64 D128 all empty", k3_inputs(64, 128, 64, seed=17), "vec16"),
+        ("K2048 D128 K'=#empty", k3_inputs(2048, 128, 100, seed=18,
+                                           int_counts=True, k_reseed=100),
+         "vec16"),
+        ("K2048 D128 int32 above 2^24", k3_inputs(2048, 128, 30, seed=19,
+                                                  int_counts=True, big=True),
+         "vec16"),
+        ("K14000 D128 many empty", k3_inputs(14000, 128, 900, seed=12),
+         "vec16"),
+        ("K20614 D128 int32", k3_inputs(20614, 128, 40, seed=20,
+                                        int_counts=True), "vec16"),
+        ("K20614 D132 f32", k3_inputs(20614, 132, 0, seed=23), "vec16"),
+    ]
+    for case, args, variant in k3_cases:
+        check_k3(case, *args, variant=variant)
+    s_, c_, r_ = k3_inputs(2048, 128, 100, seed=24, int_counts=True)
+    check_k3("K2048 D128 misaligned copy", k3_misaligned(s_), c_, r_,
+             variant="vec4")
+    n_k = k3_launch_count(*k3_inputs(20614, 128, 40, seed=20,
+                                     int_counts=True))
+    if n_k != 1:
+        raise AssertionError(f"K3 ran {n_k} kernels a call, not one")
+    log("[kernels] K3: one kernel a call (torch.profiler)")
 
     # K23: a 1M build's first step (100 chunks of 5000, k 8), later steps
     # (many small nodes, k 2-8), a ragged D and the widest D
@@ -1131,13 +1232,80 @@ def phase_build(work: str) -> dict:
     if llsp is None:
         raise AssertionError("build trained no LLSP models")
     from repro_torch.build.pipeline import index_content_hash
-    log(f"[build] index_content_hash={index_content_hash(index)[:16]}")
+    digest = index_content_hash(index)[:16]
+    log(f"[build] index_content_hash={digest}")
+    stage2 = stage2_split(report)
+    log(f"[build] stage 2 streamed: {stage2}")
+    # on the card the dispatch returns with the assign in flight, so some
+    # shard's load must land under the previous one's assign
+    if DEVICE == "cuda" and not stage2["max_pair_overlap_s"] > 0.0:
+        raise AssertionError(f"stage 2: no shard's load landed under the "
+                             f"previous shard's assign: {stage2}")
+    stage2["elastic"] = stage2_elastic(x, cfg, work, digest)
+    log(f"[build] stage 2 elastic from the same stage-1 centroids: "
+        f"{stage2['elastic']}")
+    w0 = LAUNCHES.snapshot()
     compare_per_node(x, cfg, np.load(os.path.join(work, "build",
                                                   "stage1_centroids.npy")),
                      20)
+    w1 = LAUNCHES.snapshot()
+    witness = {k: w1[k] - w0[k] for k in w1 if w1[k] > w0[k]}
+    log(f"[build] per-node witness launches: {witness}")
     return {"x": x, "spec": spec, "index": index, "llsp": llsp,
             "report": report, "build_s": build_s, "launches": launches,
-            "cfg": cfg, "split": split}
+            "cfg": cfg, "split": split, "witness_launches": witness,
+            "stage2": stage2}
+
+
+def stage2_split(report) -> dict:
+    """Stage 2 of a streamed build from ``report.shard_stamps``: the
+    per-shard median and p90 of load (host slice and pinning), stream (the
+    copy to the card), assign (dispatch to done) and harvest (checkpoint
+    write), the overlap, the bytes streamed, and the checkpoint reads plus
+    ``build_postings`` after the shards."""
+    import numpy as np
+
+    from repro_torch.build.stream import pair_overlaps
+
+    live = [t for t in report.shard_stamps if not t["resumed"]]
+    if len(live) < 2:
+        raise AssertionError(f"stage 2 streamed {len(live)} shards")
+    parts = {"load": ("load_start", "load_end"),
+             "stream": ("load_end", "stream_end"),
+             "assign": ("assign_dispatch", "assign_done"),
+             "harvest": ("assign_done", "harvest_end")}
+    out = {"shards": len(live), "stage2_s": report.stage_seconds["stage2"],
+           "postings_s": report.postings_s,
+           "overlap": report.shard_overlap,
+           "bytes_streamed": sum(t["bytes"] for t in live),
+           "max_pair_overlap_s": max(pair_overlaps(live))}
+    for name, (a, b) in parts.items():
+        ms = np.array([t[b] - t[a] for t in live]) * 1e3
+        out[f"{name}_ms_p50"] = float(np.percentile(ms, 50))
+        out[f"{name}_ms_p90"] = float(np.percentile(ms, 90))
+    return out
+
+
+def stage2_elastic(x, cfg, work: str, digest: str) -> dict:
+    """Stage 2 on the elastic-task branch from the streamed build's
+    stage-1 centroids (copied into a workdir of its own): the index must
+    hash the same; its stage-2 seconds beside the streamed branch's."""
+    import shutil
+
+    from repro_torch.build.pipeline import build_index, index_content_hash
+
+    wd = os.path.join(work, "build-elastic")
+    os.makedirs(wd)
+    shutil.copy(os.path.join(work, "build", "stage1_centroids.npy"),
+                os.path.join(wd, "stage1_centroids.npy"))
+    index, _, rep = build_index(
+        x, dataclasses.replace(cfg, stream_stage2=False), wd, device=DEVICE)
+    got = index_content_hash(index)[:16]
+    if got != digest or rep.resumed_stages != ["stage1"]:
+        raise AssertionError(f"elastic stage 2: hash {got} (streamed "
+                             f"{digest}), resumed {rep.resumed_stages}")
+    return {"stage2_s": rep.stage_seconds["stage2"],
+            "postings_s": rep.postings_s, "index_content_hash": got}
 
 
 def split_summary(stats: list) -> dict:
@@ -1515,6 +1683,150 @@ def plan_ceiling(cids, nprobe, pids, true10) -> float:
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the freshness merge on phase 4's q8 pipeline
+# --------------------------------------------------------------------------
+FRESH_CAPACITY = 65536           # delta rows: 32 MiB of f32 at D 128
+FRESH_INSERTS = 4096
+FRESH_DELETES = 4096
+
+
+def fresh_vectors(spec, n: int, seed: int):
+    """``n`` vectors drawn as the corpus is (the spec's modes and spread),
+    from an explicit generator of their own."""
+    import numpy as np
+
+    modes = np.random.default_rng(spec.seed).normal(
+        size=(spec.n_modes, spec.dim)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    which = rng.choice(spec.n_modes, size=n)
+    v = modes[which] + spec.spread * rng.normal(size=(n, spec.dim))
+    return v.astype(np.float32)
+
+
+def live_truth(x_dev, delta, dead, queries, k: int = 10):
+    """Exact top-k ids over the live main rows and the live delta rows
+    (ids: main row index, then n_main + delta row), on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distance import squared_l2, topk_smallest
+
+    allv = torch.cat([x_dev, delta])
+    dead_t = torch.from_numpy(dead).to(x_dev.device).long()
+    out = []
+    for s in range(0, len(queries), 128):
+        q = torch.from_numpy(queries[s:s + 128]).to(x_dev.device)
+        d = squared_l2(q, allv)
+        d[:, dead_t] = float("inf")
+        out.append(topk_smallest(d, k)[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_fresh(work: str, built: dict, served: dict) -> dict:
+    """Phase 4's q8 pipeline with a freshness view attached: 4,096 seeded
+    inserts, 4,096 deleted main ids (phase 4's queries' true top-1, then
+    top-2, ... until 4,096 distinct), published to the card; 64 batches of
+    32 with and without the merge, then a batch of self-queries.  Each
+    self-query must find its minted id at rank 0, no tombstoned id may come
+    back, and recall@10 against brute force over live main + delta must be
+    >= 0.95 x the probe ceiling computed the same way."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distance import recall_at_k
+    from repro_torch.lifecycle import LiveFreshState
+
+    pipe, batches = served["pipe"], served["batches"]
+    x, spec = built["x"], built["spec"]
+    n = x.shape[0]
+    true10 = served["true10"]
+    seen: dict = {}                     # insertion-ordered distinct ids
+    for i in true10.T.ravel().tolist():
+        if len(seen) == FRESH_DELETES:
+            break
+        seen.setdefault(int(i), None)
+    dead = np.asarray(sorted(seen), np.int64)
+    if len(dead) != FRESH_DELETES:
+        raise AssertionError(f"{len(dead)} distinct ids to delete")
+    ins = fresh_vectors(spec, FRESH_INSERTS, seed=4242)
+    state = LiveFreshState(dim=x.shape[1], capacity=FRESH_CAPACITY, n_main=n,
+                           device=DEVICE)
+    minted = state.insert(ins)
+    state.delete(dead)
+    t0 = time.perf_counter()
+    state.publish()
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    runs = {}
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+    try:
+        for tag, source in (("without", None), ("with", state.snapshot)):
+            pipe.fresh_source = source
+            pipe.warmup()
+            LAUNCHES.reset()
+            t0 = time.perf_counter()
+            out = pipe.run_pipelined(batches, depth=2)
+            runs[tag] = (out, time.perf_counter() - t0)
+            launches = path_launches(f"q8 streamed, freshness merge "
+                                     f"{tag} (phase 4b)")
+            if launches["ivf_scan_q8_topk"] != len(batches):
+                raise AssertionError(f"fresh ({tag}): K1 launched "
+                                     f"{launches['ivf_scan_q8_topk']} times "
+                                     f"for {len(batches)} batches")
+        pipe.fresh_source = state.snapshot
+        self_out = pipe.run_sequential(
+            [(ins[:BATCH], np.full(BATCH, 10, np.int32))])
+    finally:
+        pipe.fresh_source = None
+    out, wall = runs["with"]
+    ids = np.concatenate([o.ids for o in out])
+    if any(o.fresh_seq != state.seq for o in out):
+        raise AssertionError("a batch merged another snapshot")
+    s_ids = np.concatenate([o.ids for o in self_out])
+    s_d = np.concatenate([o.dists for o in self_out])
+    want = minted[:len(s_ids)]
+    if not (s_ids[:, 0] == want).all():
+        bad = int((s_ids[:, 0] != want).sum())
+        raise AssertionError(f"{bad} self-queries missed their minted id at "
+                             f"rank 0")
+    dead_set = set(dead.tolist())
+    back = dead_set & set(np.concatenate([ids, s_ids]).ravel().tolist())
+    if back:
+        raise AssertionError(f"{len(back)} tombstoned ids came back")
+    queries = np.concatenate([q for q, _ in batches])
+    x_dev = torch.from_numpy(x).to(DEVICE)
+    truth = live_truth(x_dev, torch.from_numpy(ins).to(DEVICE), dead,
+                       queries)
+    recall = recall_at_k(ids, truth)
+    # the probe ceiling with the delta: the live members of the probed
+    # clusters, and every live delta row (the merge scans them exactly)
+    nprobe = np.concatenate([o.nprobe for o in out])
+    cids = np.concatenate([pipe.route(q, tk)[0] for q, tk in batches])
+    pids = pipe.tier.posting_ids
+    hits = 0
+    for b in range(len(queries)):
+        probed = pids[cids[b, : nprobe[b]]].ravel()
+        reach = np.isin(truth[b], probed) | (truth[b] >= n)
+        hits += int(reach.sum())
+    ceiling = hits / truth.size
+    res = {"inserts": FRESH_INSERTS, "deletes": int(len(dead)),
+           "capacity": FRESH_CAPACITY, "publish_ms": publish_ms,
+           "recall10": recall, "probe_ceiling": ceiling,
+           "self_queries": len(s_ids),
+           "self_rank0_dist_max": float(s_d[:, 0].max()),
+           "delta_in_results": int((ids >= n).sum())}
+    for tag, (o, w) in runs.items():
+        st = pipeline_stats(o, w)
+        for key in ("qps", "p50_ms", "p99_ms", "scan_ms", "rerank_ms"):
+            res[f"{key}_{tag}"] = st[key]
+    log("[fresh] " + " ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                              else f"{k}={v}" for k, v in res.items()))
+    if recall < 0.95 * ceiling:
+        raise AssertionError(f"fresh: recall@10 {recall} below 0.95 x the "
+                             f"probe ceiling {ceiling}")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 5: the same pipeline on the CPU (plain versions) must agree
 # --------------------------------------------------------------------------
 def phase_parity(work: str, built: dict, served: dict) -> dict:
@@ -1821,6 +2133,10 @@ def phase_unfused(work: str) -> dict:
                        report.stage_seconds.items())
             + f" n_clusters={report.n_clusters} "
               f"hash={index_content_hash(index)[:16]} launches={launches}")
+    resume = stage2_partial_resume(x, os.path.join(
+        work, f"build-{N_UNFUSED}-True"), builds[True]["index"])
+    log(f"[unfused] fused build resumed after a deleted shard checkpoint: "
+        f"{resume}")
     unf = builds[False]
     if unf["launches"]["pairwise_l2"] < 1:
         raise AssertionError("the unfused build never launched pairwise_l2")
@@ -1859,6 +2175,31 @@ def phase_unfused(work: str) -> dict:
                              f"x the probe ceiling {ceiling}")
     return {"launches": unf["launches"], "recall": recall,
             "ceiling": ceiling}
+
+
+def stage2_partial_resume(x, wd: str, index) -> dict:
+    """Delete one shard checkpoint of the build in ``wd`` and build again:
+    stage 1 resumes, stage 2 re-runs that shard alone
+    (``stage2:partial``), and the index hashes the same."""
+    from repro_torch.build.pipeline import BuildConfig, build_index, \
+        index_content_hash
+
+    shards = sorted(os.listdir(os.path.join(wd, "shards")))
+    os.remove(os.path.join(wd, "shards", shards[len(shards) // 2]))
+    cfg = BuildConfig(max_cluster_size=96, cluster_len=128,
+                      coarse_per_task=5000, n_workers=2)
+    again, _, rep = build_index(x, cfg, wd, device=DEVICE)
+    want = index_content_hash(index)[:16]
+    got = index_content_hash(again)[:16]
+    reran = [t["shard"] for t in rep.shard_stamps if not t["resumed"]]
+    if ("stage2:partial" not in rep.resumed_stages or got != want
+            or len(reran) != 1):
+        raise AssertionError(f"partial resume: resumed "
+                             f"{rep.resumed_stages}, re-ran {reran}, hash "
+                             f"{got} (before {want})")
+    return {"shards": len(shards), "reran": reran,
+            "resumed": rep.resumed_stages, "index_content_hash": got,
+            "stage2_s": rep.stage_seconds["stage2"]}
 
 
 # --------------------------------------------------------------------------
@@ -1908,12 +2249,14 @@ def service_estimate_ms(batcher) -> float:
 
 
 def replay_open_loop(stack, dep, what: str, rate: float, deadline_s,
-                     seed: int) -> dict:
+                     seed: int, inserts=None) -> dict:
     """Replay one open-loop single-tenant trace (top-k 10-50) through the
     running engine, with torch.profiler (device activity only) over the
     window; returns the counts, rates and latencies of the run, the span
     over which the submitter really issued the arrivals, and the batcher's
-    service estimate before and after."""
+    service estimate before and after.  ``inserts`` (an update lane, the
+    insert times in s, the vectors) streams one-vector inserts into the
+    lane beside the searches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1929,9 +2272,14 @@ def replay_open_loop(stack, dep, what: str, rate: float, deadline_s,
     LAUNCHES.reset()
     torch.cuda.synchronize()
     late = 0.0
+    lane, ins_t, ins_v = inserts if inserts is not None else (None, [], [])
+    j = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for arr in trace:
+            while j < len(ins_t) and ins_t[j] <= arr.t:
+                lane.submit_insert(ins_v[j:j + 1])
+                j += 1
             lag = t0 + arr.t - time.monotonic()
             if lag > 0:
                 time.sleep(lag)
@@ -1939,6 +2287,8 @@ def replay_open_loop(stack, dep, what: str, rate: float, deadline_s,
                 late = max(late, -lag)
             engine.submit(dep.queries[arr.qrow], arr.topk, index=dep.name,
                           deadline_s=arr.deadline_s)
+        for j in range(j, len(ins_t)):       # the stream's tail
+            lane.submit_insert(ins_v[j:j + 1])
         span = time.monotonic() - t0
         st = engine.stats
         # a rejected arrival never entered the SQ (submit returned -1)
@@ -1975,6 +2325,52 @@ def replay_open_loop(stack, dep, what: str, rate: float, deadline_s,
             "device_busy": busy, "wall_s": wall,
             "drain_s": wall - span,
             "k1_launches": launches["ivf_scan_q8_topk"]}
+
+
+UPDATE_RATE = 100.0              # one-vector inserts a second in (c)
+UPDATE_CAPACITY = 4096           # the lane's delta rows (2 MiB at D 128)
+
+
+def attach_update_lane(stack, dep, spec):
+    """An UpdateLane over a fresh LiveFreshState for ``dep``, attached to
+    the stack's engine, with the pipeline reading the state's snapshots;
+    returns (lane, (lane, insert times, vectors)) for a Poisson stream of
+    UPDATE_RATE inserts a second over the trace, from a seed."""
+    import numpy as np
+
+    from repro_torch.lifecycle import LiveFreshState, UpdateLane
+
+    rng = np.random.default_rng(77)
+    times = np.cumsum(rng.exponential(1.0 / UPDATE_RATE,
+                                      size=int(3 * UPDATE_RATE
+                                               * ENGINE_TRACE_S)))
+    times = times[times < ENGINE_TRACE_S]
+    vecs = fresh_vectors(spec, len(times), seed=78)
+    state = LiveFreshState(dim=spec.dim, capacity=UPDATE_CAPACITY,
+                           n_main=spec.n, device=DEVICE)
+    lane = UpdateLane(state, obs=stack["obs"])
+    dep.pipeline.fresh_source = state.snapshot
+    stack["engine"].add_update_lane(dep.name, lane)
+    return lane, (lane, times.tolist(), vecs)
+
+
+def update_lane_stats(lane, n_sent: int) -> dict:
+    """The lane's counts and insert-to-visible percentiles; nothing sent
+    may be lost, rejected, shed or left unapplied."""
+    st = lane.stats
+    vis = lane.visibility_stats()
+    out = {"sent": n_sent, "submitted": st.submitted,
+           "applied_inserts": st.applied_inserts, "rejected": st.rejected,
+           "rejected_full": st.rejected_full, "shed": st.shed_deadline,
+           "pumps": st.pumps, "publishes": st.publishes,
+           "visible": vis["n_visible"], "pending": vis["n_pending"],
+           "insert_to_visible_ms": vis["insert_to_visible"]}
+    if (st.submitted != n_sent or st.applied_inserts != n_sent
+            or st.rejected or st.rejected_full or st.shed_deadline
+            or vis["n_visible"] + vis["n_pending"] != n_sent
+            or vis["n_visible"] < 1):
+        raise AssertionError(f"update lane lost or refused ops: {out}")
+    return out
 
 
 def finish_stack(stack, what: str) -> dict:
@@ -2066,10 +2462,14 @@ def phase_engine(work: str, built: dict, served: dict) -> dict:
         # to show what it costs at each rate
         for tag, frac, deadline, quality in ENGINE_RUNS:
             stack = engine_stack(dep, x, work, tag, quality)
+            lane = inserts = None
+            if tag == "c":
+                lane, inserts = attach_update_lane(stack, dep, spec)
             stack["engine"].start()
             try:
                 res = replay_open_loop(stack, dep, tag, frac * base, deadline,
-                                       seed=31 + int(frac * 4))
+                                       seed=31 + int(frac * 4),
+                                       inserts=inserts)
                 if tag == "a":
                     LAUNCHES.reset()
                     comps, rows = probe_completions(
@@ -2078,7 +2478,10 @@ def phase_engine(work: str, built: dict, served: dict) -> dict:
                         "engine recall probes (phase 11)")["ivf_scan_q8_topk"]
             finally:
                 stack["engine"].stop(drain=True)
+                pipe.fresh_source = None
             res.update(finish_stack(stack, f"engine ({tag})"))
+            if lane is not None:
+                res["updates"] = update_lane_stats(lane, len(inserts[1]))
             res["deadline_ms"] = None if deadline is None else deadline * 1e3
             log(f"[engine] ({tag}) {frac}x phase-4 QPS: " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
@@ -2264,22 +2667,7 @@ def phase_times(built: dict, served: dict, kernel_errs: dict,
                      f"N={n} K={k} D={d} (enforce_size_bound)",
                      device_ms=t["queued"], splitter_shape_ms=small,
                      split_ms=split))
-    # K3: the splitter's M-step before K23, K = 8 centroids of D = 128
-    sums, counts, reseed = k3_inputs(8, 128, 2, seed=22)
-    t = time_two_ways(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed),
-                      n=200)
-    plain = time_ms(lambda: mm.kmeans_mstep_plain(sums, counts, reseed),
-                    n=200)
-    n_empty = int((counts <= 0).sum())
-    nbytes = 8 * 128 * 4 * 2 + 8 * 4 + n_empty * 128 * 4
-    rows.append(_row("kmeans_mstep", "src/repro_torch/csrc/kmeans_mstep.cu",
-                     "src/repro/kernels/kmeans_mstep.py:90",
-                     kernel_errs["kmeans_mstep"], t["events"], plain, nbytes,
-                     8 * 128,
-                     "no single PyTorch call divides by the counts and "
-                     "reseeds the empty clusters by rank",
-                     "K=8 D=128 (the splitter's shape before K23)",
-                     device_ms=t["queued"]))
+    rows.append(k3_row(built, kernel_errs))
     rows.append(k23_row(built, kernel_errs))
     rows.append(b2_row(streamed, resident, kernel_errs))
     rows.append(b6a_row(resident, kernel_errs))
@@ -2335,6 +2723,79 @@ def kernel_split_ms(run, parts, n: int) -> dict:
         raise AssertionError(f"the profiler recorded no launch of "
                              f"{[p for p in parts if not count[p]]}")
     return {p: total[p] / 1e3 / count[p] for p in parts}
+
+
+# K3's timed shapes (K, D, empty clusters): the splitter's 8-means,
+# enforce_size_bound's 2-means (the per-node witness runs both) and the 1M
+# index's centroid count, where bytes bind
+K3_SHAPES = ((8, 128, 2), (2, 128, 1), (20614, 128, 322))
+
+
+def k3_bytes(k: int, d: int, n_empty: int) -> int:
+    """Bytes K3 must move: sums and the output once, the counts, and one
+    reseed row per empty cluster."""
+    return (2 * k * d + k + n_empty * d) * 4
+
+
+def k3_shape_times(time_two_ways) -> dict:
+    """K3 at each of K3_SHAPES through ``kmeans_mstep_cuda`` (int32 counts,
+    as K2 returns them), by both timers, beside its plain version and its
+    byte bound."""
+    from repro_torch.kernels import kmeans_mstep as mm
+
+    out = {}
+    for k, d, n_empty in K3_SHAPES:
+        sums, counts, reseed = k3_inputs(k, d, n_empty, seed=22 + k,
+                                         int_counts=True)
+        # n = 200: the parent tree's K3 issues three kernels a call, and
+        # more than about 1,000 queued launches fill the launch queue behind
+        # the sleep, so the queued timer would read the host
+        t = time_two_ways(lambda: mm.kmeans_mstep_cuda(sums, counts, reseed),
+                          n=200)
+        out[f"K{k} D{d}"] = {
+            "events_ms": t["events"], "device_ms": t["queued"],
+            "plain_ms": time_ms(lambda: mm.kmeans_mstep_plain(
+                sums, counts, reseed), n=200),
+            "bound_ms": bound_ms(k3_bytes(k, d, n_empty), k * d),
+            "n_empty": n_empty}
+    return out
+
+
+def launch_floor_times() -> dict:
+    """The empty kernel (``csrc/launch_floor.cu``) by both timers: the
+    device time of the least launch (queued) and the host's issue time a
+    launch through ctypes (events)."""
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+
+    dev = torch.device("cuda")
+    t = time_two_ways(lambda: cuda_lib.launch_floor(dev), n=500)
+    return {"events_ms": t["events"], "device_ms": t["queued"]}
+
+
+def k3_row(built: dict, kernel_errs: dict) -> dict:
+    """K3 at K3_SHAPES by both timers, the launch floor beside it, its
+    launches on the main paths (none: K23 took its calls) and in phase 3's
+    per-node witness."""
+    shapes = k3_shape_times(time_two_ways)
+    floor = launch_floor_times()
+    log(f"[times] launch floor (empty kernel, one block of one thread): "
+        f"{floor['events_ms']:.6f} ms by events, {floor['device_ms']:.6f} "
+        f"ms queued")
+    log(f"[times] K3: {shapes}")
+    main = shapes["K8 D128"]
+    k, d, _ = K3_SHAPES[0]
+    return _row("kmeans_mstep", "src/repro_torch/csrc/kmeans_mstep.cu",
+                "src/repro/kernels/kmeans_mstep.py:90",
+                kernel_errs["kmeans_mstep"], main["events_ms"],
+                main["plain_ms"], k3_bytes(k, d, main["n_empty"]), k * d,
+                "no single PyTorch call ranks the empty clusters, gathers "
+                "their reseed rows and divides the rest",
+                "K=8 D=128 (the splitter's shape), int32 counts",
+                device_ms=main["device_ms"], shapes=shapes,
+                launch_floor_ms=floor,
+                witness_launches=built.get("witness_launches", {}))
 
 
 def k23_row(built: dict, kernel_errs: dict) -> dict:
@@ -2477,7 +2938,12 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
 
 
 def b6a_row(resident: dict, kernel_errs: dict) -> dict:
-    """B6a on one resident batch (phase 7's first batch plan)."""
+    """B6a on one resident batch (phase 7's first batch plan), beside
+    torch.cdist of each query against its probed blocks gathered
+    beforehand, (P * L, D) rows a query (Euclidean, no gather, no mask: the
+    basis of B6b's row)."""
+    import torch
+
     from repro_torch.kernels import ivf_scan as scan
 
     cids, mask, qd = resident["plan0"]
@@ -2487,6 +2953,10 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
     plain = time_ms(lambda: scan.ivf_scan_plain(post, cids, mask, qd), n=10)
     _, l, d = post.shape
     b, p = cids.shape
+    g = post[cids.long().clamp(0, post.shape[0] - 1)].reshape(
+        b, p * l, d).contiguous()
+    q3 = qd.contiguous()[:, None, :]
+    lib = time_two_ways(lambda: torch.cdist(q3, g), n=100)
     live = int(mask.sum())
     uniq = int(cids[mask].unique().numel())
     nbytes = uniq * l * d * 4 + b * d * 4 + b * p * 5 + b * p * l * 4
@@ -2494,10 +2964,11 @@ def b6a_row(resident: dict, kernel_errs: dict) -> dict:
     return _row("ivf_scan", "src/repro_torch/csrc/ivf_scan.cu",
                 "src/repro/kernels/ivf_scan.py:111",
                 kernel_errs["ivf_scan"], t["events"], plain, nbytes, flops,
-                "no single PyTorch call gathers each query's probed blocks "
-                "and computes their distances",
+                "torch.cdist of each query against its gathered (P*L, D) "
+                "rows (gather and mask not included)",
                 f"resident batch: B={b} P={p} C={post.shape[0]} live={live} "
-                f"unique_clusters={uniq} L={l} D={d}", device_ms=t["queued"])
+                f"unique_clusters={uniq} L={l} D={d}", device_ms=t["queued"],
+                library_ms=lib["events"], library_device_ms=lib["queued"])
 
 
 # kernels that no main path of the port runs, so their rows must count no
@@ -2794,6 +3265,7 @@ def main() -> int:
         built = phase_build(work)
         served = phase_serve(work, built)
         phase_parity(work, built, served)
+        phase_fresh(work, built, served)
         resident = phase_resident(built, served)
         streamed = phase_streamed_f32(built, served, resident)
         phase_cpu_resident(built, served, resident)

@@ -9,14 +9,17 @@ K23, per step); with ``fused_assign=False`` each chunk is a task on the
 unfused ``pairwise_l2`` path.  The merged centroid set is then split until
 every Voronoi cell fits a posting list (fused: K2 reassignments, each
 round's 2-means in one K23 launch).  Stage 2 — closure multi-cluster
-assignment per shard (elastic tasks, shard-granular checkpoints), then the
-fixed-size posting build.  Stage 3 — LLSP training from logged queries.
+assignment per shard, then the fixed-size posting build.  With
+``cfg.stream_stage2`` (default) the shards run through the double-buffered
+:class:`repro_torch.build.stream.ShardAssignPipeline` (shard i+1's host
+slice and copy to the device under shard i's in-flight assign, each stage
+stamped in ``report.shard_stamps``); otherwise as elastic tasks.  Stage 3 —
+LLSP training from logged queries.
 
 Every stage checkpoints under ``workdir``; rebuilding with the same config
 resumes instead of recomputing, and the kernels' M-step is deterministic,
-so a resumed build hashes equal to a fresh one (:func:`index_content_hash`).
-The reference's streamed stage 2 (``ShardAssignPipeline``) is ported in a
-later slice; this port runs the elastic-task branch.
+so a resumed build hashes equal to a fresh one (:func:`index_content_hash`),
+at shard granularity inside stage 2.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from .elastic import run_tasks
 from .kmeans import SplitStats, balanced_hierarchical_kmeans, \
     balanced_hierarchical_kmeans_many, enforce_size_bound
+from .stream import ShardAssignPipeline, shard_overlap_efficiency
 
 
 @dataclasses.dataclass
@@ -54,6 +58,9 @@ class BuildConfig:
     fused_assign: bool = True     # False = the reference's unfused A/B
                                   # path: pairwise_l2 tile + argmin, host
                                   # float64 M-step
+    stream_stage2: bool = True    # double-buffered shard-assign pipeline
+                                  # with stage stamps; False = the elastic
+                                  # thread-pool tasks
 
 
 @dataclasses.dataclass
@@ -62,6 +69,10 @@ class BuildReport:
     replication: float            # mean posting slots per corpus vector
     stage_seconds: dict
     resumed_stages: list
+    shard_stamps: list = dataclasses.field(default_factory=list)
+    shard_overlap: float = 0.0    # measured load-under-assign fraction
+    postings_s: float = 0.0       # stage 2's checkpoint reads and
+                                  # build_postings, after the shards
     stage1_split: list = dataclasses.field(default_factory=list)
                                   # SplitStats per fused stage-1 group
 
@@ -154,8 +165,22 @@ def build_index(
     t0 = time.perf_counter()
     shard_paths = [os.path.join(shards_dir, f"assign_{i:05d}.npz")
                    for i in range(len(spans))]
+    shard_stamps: list = []
+    shard_overlap = 0.0
     if all(os.path.exists(p) for p in shard_paths):
         resumed.append("stage2")
+    elif cfg.stream_stage2:
+        pipe = ShardAssignPipeline(
+            x, centroids, spans, shard_paths, eps=cfg.closure_eps,
+            max_replicas=cfg.max_replicas, device=dev)
+        try:
+            stamps = pipe.run()
+        finally:
+            pipe.close()
+        shard_overlap = shard_overlap_efficiency(stamps)
+        shard_stamps = [t.asdict() for t in stamps]
+        if any(t.resumed for t in stamps):
+            resumed.append("stage2:partial")
     else:
         cj = torch.from_numpy(centroids).to(dev)
 
@@ -176,6 +201,7 @@ def build_index(
         run_tasks([mk_stage2(lo, hi, p)
                    for (lo, hi), p in zip(spans, shard_paths)],
                   n_workers=cfg.n_workers)
+    t_post = time.perf_counter()
     assign = np.concatenate(
         [np.load(p)["assign"] for p in shard_paths], axis=0)
     postings, posting_ids = build_postings(x, assign, n_clusters,
@@ -184,6 +210,7 @@ def build_index(
                      torch.from_numpy(postings).to(dev),
                      torch.from_numpy(posting_ids).to(dev))
     stage_seconds["stage2"] = time.perf_counter() - t0
+    postings_s = time.perf_counter() - t_post
 
     # ---- stage 3: LLSP training from logged queries -----------------------
     t0 = time.perf_counter()
@@ -196,7 +223,9 @@ def build_index(
     replication = float((posting_ids >= 0).sum()) / max(n, 1)
     report = BuildReport(n_clusters=n_clusters, replication=replication,
                          stage_seconds=stage_seconds, resumed_stages=resumed,
-                         stage1_split=split_stats)
+                         shard_stamps=shard_stamps,
+                         shard_overlap=shard_overlap,
+                         postings_s=postings_s, stage1_split=split_stats)
     return index, llsp, report
 
 

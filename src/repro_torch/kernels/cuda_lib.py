@@ -42,7 +42,7 @@ _SIGNATURES = {
     "ivf_scan_q8_topk_smem_bytes": [_I, _I, _I],
     "ivf_scan_q8_topk_max_chunks": [_I, _I],
     "kmeans_assign_update_launch": [_P] * 13 + [_I] * 4 + [_P],
-    "kmeans_mstep_launch": [_P] * 5 + [_I] * 2 + [_P],
+    "kmeans_mstep_launch": [_P] * 4 + [_I] * 6 + [_P],
     "ivf_scan_topk_launch": [_P] * 10 + [_I] * 6 + [_P],
     "ivf_scan_topk_smem_bytes": [_I, _I, _I],
     "ivf_scan_topk_max_chunks": [_I, _I],
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],
     "ivf_scan_q8_legacy_launch": [_P] * 8 + [_I] * 6 + [_P],
     "kmeans_batched_launch": [_P] * 9 + [_I] * 3 + [_P],
+    "launch_floor_launch": [_P],
     "repro_cuda_error_string": [_I],
 }
 _RESTYPES = {"ivf_scan_q8_topk_smem_bytes": ctypes.c_size_t,
@@ -181,6 +182,14 @@ def check(rc: int, what: str) -> None:
         msg = library().repro_cuda_error_string(rc)
         raise RuntimeError(f"{what}: CUDA error {rc} "
                            f"({msg.decode() if msg else '?'})")
+
+
+def launch_floor(device) -> None:
+    """Launch the empty kernel (``csrc/launch_floor.cu``) on ``device``'s
+    current stream: the yardstick of the least time a launch takes.  It is
+    no port of a TPU kernel, so it counts in no launch counter."""
+    check(library().launch_floor_launch(stream_handle(device)),
+          "launch_floor")
 
 
 def stream_handle(device) -> int:

@@ -111,7 +111,9 @@ def deploy(arena: ChunkArena, name: str, spec, workdir: str,
                                       query_topk=topk, device=device)
     note = (f"build {time.perf_counter() - t0:.1f}s ("
             + " ".join(f"{k} {v:.1f}s"
-                       for k, v in report.stage_seconds.items()) + ")")
+                       for k, v in report.stage_seconds.items()) + "), "
+            f"build overlap {report.shard_overlap:.2f} "
+            f"({len(report.shard_stamps)} shards)")
     return deploy_built(arena, name, spec, workdir, n_shards, scfg, index,
                         llsp, x, q, tier=tier, rerank=rerank,
                         with_rerank=with_rerank, device=device,

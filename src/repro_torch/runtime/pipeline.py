@@ -15,8 +15,11 @@ Stage protocol (each stage returns a handle consumed by the next):
                   on a dedicated worker thread; resident: nothing;
   ``dispatch`` -> join the gather, launch the fused scan (K1 for q8, B2 for
                   f32) and the candidate merge on the scan stream, which
-                  first waits on the copy's event; results start copying
-                  back to pinned host buffers; returns without waiting;
+                  first waits on the copy's event; with a ``fresh_source``
+                  attached, capture one freshness snapshot and chain the
+                  §6.2 delta + tombstone merge (``core.fresh.merge_fresh``)
+                  onto the scan; results start copying back to pinned host
+                  buffers; returns without waiting;
   ``harvest``  -> wait for the scan's event, exact re-rank from the flash
                   tier (numpy) with adaptive stop when one is attached.
 
@@ -47,6 +50,7 @@ import torch
 from repro_torch.core.distance import (
     dedup_topk, merge_candidate_topk, squared_l2, topk_smallest,
 )
+from repro_torch.core.fresh import merge_fresh
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.search import SearchConfig, _auto_ncand, \
     _scan_and_rank, decide_nprobe
@@ -133,6 +137,7 @@ class _Inflight:
     size: int
     queries_host: np.ndarray
     done: Optional[torch.cuda.Event] = None
+    fresh_seq: int = -1            # freshness snapshot merged (-1 = none)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,18 +250,25 @@ class PrefetchPipeline:
     batch streams only its probed-cluster union.  Resident (``tier=None``):
     the index is on the device and prefetch does nothing.  ``pad_batch`` /
     ``row_bucket`` quantize the padded batch size and packed-row count as in
-    the reference.  Runs on ``device`` (the CUDA card by default; ``"cpu"``
-    runs the plain versions)."""
+    the reference.  ``fresh_source`` is a zero-argument callable returning
+    the current ``lifecycle.ingest.FreshSnapshot`` (or None): when set, each
+    batch captures one snapshot at dispatch and merges the delta buffer and
+    tombstones into its candidates, and the scan over-fetches (n_cand-wide
+    candidates instead of k) so tombstoned slots cannot starve the final
+    top-k.  Runs on ``device`` (the CUDA card by default; ``"cpu"`` runs the
+    plain versions)."""
 
     def __init__(self, index: IVFIndex, llsp_params, cfg: SearchConfig,
                  tier: Optional[Union[QuantizedTieredPostings,
                                       TieredPostings]] = None, *,
                  pad_batch: int = 16, row_bucket: int = 256,
                  dup_bound: Optional[int] = None,
+                 fresh_source=None,
                  flash: Optional[FlashTier] = None,
                  rerank: Optional[RerankConfig] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.fresh_source = fresh_source
         self.index = index.to(self.device)
         self.llsp_params = (None if llsp_params is None
                             else llsp_params.to(self.device))
@@ -290,9 +302,12 @@ class PrefetchPipeline:
 
     @property
     def _scan_cfg(self) -> SearchConfig:
-        """With the flash re-rank on, the scan keeps n_cand-wide candidates
-        (not k): the re-ranker needs the full ~2k candidate set."""
-        if self.flash is None:
+        """With a fresh view attached or the flash re-rank on, the scan
+        keeps n_cand-wide candidates (not k): the tombstone filter must not
+        starve the final merge, and the re-ranker needs the full ~2k
+        candidate set.  n_cand is pinned too, so the scan does not derive a
+        wider auto width from the widened k."""
+        if self.fresh_source is None and self.flash is None:
             return self.cfg
         k2 = self.cfg.n_cand or _auto_ncand(self.cfg.k)
         return dataclasses.replace(self.cfg, k=k2, n_cand=k2)
@@ -448,6 +463,22 @@ class PrefetchPipeline:
                 od, oi = _scan_streamed(
                     *fetched.tensors(), pmask, plan.queries_dev,
                     self._scan_cfg, dup_bound=self.dup_bound)
+            seq = -1
+            snap = self.fresh_source() if self.fresh_source is not None \
+                else None
+            if snap is not None:
+                if stream is not None:
+                    for x in (snap.delta_vecs, snap.delta_ids,
+                              snap.tombstone):
+                        x.record_stream(stream)
+                # with the re-ranker on, stay candidate-wide through the
+                # merge: the narrowing to k happens after rescoring
+                keep = self._scan_cfg.k if self.flash is not None \
+                    else self.cfg.k
+                od, oi = merge_fresh(od, oi, plan.queries_dev,
+                                     snap.delta_vecs, snap.delta_ids,
+                                     snap.tombstone, keep)
+                seq = snap.seq
             if stream is not None:
                 host_d = torch.empty(od.shape, dtype=od.dtype,
                                      pin_memory=True)
@@ -459,7 +490,7 @@ class PrefetchPipeline:
                 done.record(stream)
                 od, oi = host_d, host_i
         return _Inflight(od, oi, plan.nprobe, t, t.size, plan.queries_host,
-                         done)
+                         done, fresh_seq=seq)
 
     def harvest(self, infl: _Inflight) -> BatchResult:
         """Wait for the scan; truncate padding; with the flash tier
@@ -479,7 +510,8 @@ class PrefetchPipeline:
         else:
             ids, dists = ids.copy(), dists.copy()
         return BatchResult(ids, dists, infl.nprobe[: infl.size].copy(),
-                           infl.times, quality=quality)
+                           infl.times, fresh_seq=infl.fresh_seq,
+                           quality=quality)
 
     def _rerank(self, queries: np.ndarray, cand_d: np.ndarray,
                 cand_i: np.ndarray, t: StageTimes
@@ -489,8 +521,9 @@ class PrefetchPipeline:
         Rounds of ``rerank.round_size`` candidate columns are exact-scored
         from the flash tier; each round's read is issued one round ahead on
         the rerank queue.  Ids outside the flash tier and padding (-1) keep
-        their incoming distance.  Stops once the batch's exact top-k
-        survives ``stable_rounds`` rounds unchanged."""
+        their incoming distance: a fresh-delta id is already exact from
+        the merge.  Stops once the batch's exact top-k survives
+        ``stable_rounds`` rounds unchanged."""
         rc = self.rerank
         k = self.cfg.k
         n = cand_i.shape[1]
@@ -501,10 +534,14 @@ class PrefetchPipeline:
         n_rounds = -(-n // step)
         futs: dict[int, object] = {}
 
+        # only ids inside the flash tier are read: a fresh-delta id (past
+        # the tier's last row) keeps its exact distance from the merge
+        flash_ids = np.where(cand_i < self.flash.n, cand_i, -1)
+
         def _submit(r):
             if r < n_rounds and r not in futs:
                 futs[r] = self._reranker.submit(
-                    self.flash.read, cand_i[:, r * step:(r + 1) * step])
+                    self.flash.read, flash_ids[:, r * step:(r + 1) * step])
 
         prev_top = None
         stable = 0
@@ -557,8 +594,9 @@ class PrefetchPipeline:
 
     def warmup(self, batch_sizes=(16, 32)) -> int:
         """Build the kernel library and run one plan + scan per padded batch
-        size, so traffic never pays the first-use costs (kernel build,
-        allocator growth, pinned-buffer pool).  Returns the number of warm
+        size (with a fresh view attached, the freshness merge too), so
+        traffic never pays the first-use costs (kernel build, allocator
+        growth, pinned-buffer pool).  Returns the number of warm
         batches."""
         first = self.index.centroids[:1].cpu().numpy()
         n = 0
@@ -686,13 +724,15 @@ def make_quantized_pipeline(index: IVFIndex, llsp_params, cfg: SearchConfig,
                             name: str = "helmsman", vectors=None,
                             rerank: Optional[RerankConfig] = None,
                             with_flash: bool = True,
+                            fresh_source=None,
                             device: DeviceLike = None,
                             **pipe_kw) -> PrefetchPipeline:
     """The quantized-default serving pipeline for one index version: q8 hot
     tier (dead slots masked out of the scale), f32 corpus demoted to the
     mmap flash tier, adaptive re-rank on.  ``vectors`` (N, D) is the
     id-addressed corpus (reconstructed from the postings when omitted);
-    ``with_flash=False`` serves raw q8 distances (the no-rerank arm)."""
+    ``with_flash=False`` serves raw q8 distances (the no-rerank arm);
+    ``fresh_source`` attaches the freshness merge (:class:`PrefetchPipeline`)."""
     from repro_torch.core.quantize import quantize_postings
 
     dev = resolve_device(device)
@@ -711,7 +751,8 @@ def make_quantized_pipeline(index: IVFIndex, llsp_params, cfg: SearchConfig,
                           epoch=epoch)
     cfg = dataclasses.replace(cfg, tier="q8")
     return PrefetchPipeline(index, llsp_params, cfg, tier, flash=flash,
-                            rerank=rerank, device=dev, **pipe_kw)
+                            rerank=rerank, fresh_source=fresh_source,
+                            device=dev, **pipe_kw)
 
 
 def latency_percentiles(lat_s: list[float]) -> dict:

@@ -895,3 +895,116 @@ def test_kmeans_kernels_keep_a_nan_distance(cuda, kernel):
     assert torch.isnan(want[1]).any()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def _k3_case(k, d, n_empty, seed, int_counts=True, k_reseed=None, big=False):
+    rng = np.random.default_rng(seed)
+    sums = rng.normal(size=(k, d)).astype(np.float32)
+    lo, hi = ((1 << 24) + 1, 1 << 30) if big else (1, 50)
+    counts = rng.integers(lo, hi, size=k)
+    counts[rng.choice(k, size=n_empty, replace=False)] = 0
+    counts = counts.astype(np.int32 if int_counts else np.float32)
+    reseed = rng.normal(size=(k if k_reseed is None else k_reseed, d))
+    return sums, counts, reseed.astype(np.float32)
+
+
+K3_CASES = [  # (K, D, empty, int counts, K', counts above 2^24)
+    (8, 128, 2, True, None, False), (8, 128, 2, False, None, False),
+    (2, 128, 1, True, None, False), (1, 7, 1, True, None, False),
+    (1, 128, 0, False, None, False), (65, 3, 20, False, None, False),
+    (64, 128, 64, True, None, False), (2048, 128, 100, True, 100, False),
+    (2048, 128, 30, True, None, True), (2048, 37, 0, False, None, False),
+    (14000, 128, 900, False, None, False), (20614, 128, 322, True, None,
+                                             False),
+    (20614, 128, 0, True, None, True), (3000, 1024, 10, True, None, False),
+]
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_kmeans_mstep_kernel_bit_equal_at_every_shape(cuda, case):
+    """K3 bit-equal to its plain version in one launch: int32 and f32
+    counts, none, some and all empty, K' above and at the number of empty
+    clusters, counts above 2^24, K 1 to 20,614 and D 3 to 1,024."""
+    from repro_torch.kernels import kmeans_mstep as tmstep
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    k, d, n_empty, int_counts, k_reseed, big = case
+    s, c, r = _dev(_k3_case(k, d, n_empty, seed=k + d,
+                            int_counts=int_counts, k_reseed=k_reseed,
+                            big=big), cuda)
+    want = tmstep.kmeans_mstep_plain(s, c, r)
+    before = LAUNCHES.snapshot()["kmeans_mstep"]
+    got = tmstep.kmeans_mstep_cuda(s, c, r)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot()["kmeans_mstep"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_kmeans_mstep_kernel_takes_4_byte_words_when_misaligned(cuda):
+    from repro_torch.kernels import kmeans_mstep as tmstep
+
+    s, c, r = _dev(_k3_case(2048, 128, 100, seed=3), cuda)
+    buf = torch.empty(s.numel() + 1, dtype=torch.float32, device=cuda)
+    mis = buf[1:].view(s.shape)
+    mis.copy_(s)
+    assert tmstep.kmeans_mstep_variant(128, mis.data_ptr(), r.data_ptr(),
+                                       0) == "vec4"
+    assert torch.equal(tmstep.kmeans_mstep_cuda(mis, c, r),
+                       tmstep.kmeans_mstep_plain(mis, c, r))
+    with pytest.raises(ValueError, match="int32 or f32"):
+        tmstep.kmeans_mstep_cuda(s, c.to(torch.int64), r)
+
+
+def test_stage2_stream_overlaps_on_card(cuda, tmp_path):
+    """On the card the loader's slice and copy of shard i+1 land inside
+    shard i's assign window somewhere, and the streamed and elastic
+    branches hash the same.  Stage 1 is given (20,000 centroids, the 1M
+    index's count, drawn from the corpus), so the 5,000-row shards' assign
+    runs as long as the 1M build's: with a few hundred centroids it ends
+    before the host has issued it, and nothing can overlap."""
+    import os
+
+    from repro_torch.build.pipeline import BuildConfig, build_index, \
+        index_content_hash
+    from repro_torch.build.stream import pair_overlaps
+    from repro_torch.data.synthetic import PAPER_DATASETS, make_vectors
+
+    spec = dataclasses.replace(PAPER_DATASETS["sift"], n=40000, dim=128)
+    x = make_vectors(spec)
+    cents = x[np.random.default_rng(0).choice(len(x), 20000, replace=False)]
+    cfg = BuildConfig(max_cluster_size=96, cluster_len=128,
+                      coarse_per_task=5000)
+    for tag in ("s", "e"):
+        os.makedirs(tmp_path / tag)
+        np.save(tmp_path / tag / "stage1_centroids.npy", cents)
+    idx, _, rep = build_index(x, cfg, str(tmp_path / "s"), device=cuda)
+    assert rep.resumed_stages == ["stage1"] and len(rep.shard_stamps) == 8
+    assert max(pair_overlaps(rep.shard_stamps)) > 0.0
+    assert 0.0 < rep.shard_overlap <= 1.0
+    idx_e, _, _ = build_index(
+        x, dataclasses.replace(cfg, stream_stage2=False),
+        str(tmp_path / "e"), device=cuda)
+    assert index_content_hash(idx_e) == index_content_hash(idx)
+
+
+def test_fresh_merge_on_card_matches_cpu(cuda):
+    from repro_torch.core.fresh import merge_fresh
+
+    rng = np.random.default_rng(4)
+    b, kw, cap, d, n_main = 32, 24, 4096, 128, 10000
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    main_i = np.stack([rng.permutation(n_main)[:kw]
+                       for _ in range(b)]).astype(np.int32)
+    main_d = np.sort(rng.uniform(50, 300, size=(b, kw)), axis=1).astype(
+        np.float32)
+    dv = (q[rng.integers(0, b, size=cap)]
+          + rng.normal(size=(cap, d))).astype(np.float32)
+    di = (n_main + np.arange(cap)).astype(np.int32)
+    di[cap // 2:] = -1
+    tomb = np.zeros((n_main + cap,), bool)
+    tomb[rng.choice(n_main + cap // 2, size=500, replace=False)] = True
+    args = [main_d, main_i, q, dv, di, tomb]
+    gd, gi = merge_fresh(*_dev(args, cuda), kw)
+    cd, ci = merge_fresh(*_dev(args, "cpu"), kw)
+    torch.cuda.synchronize()
+    assert_candidates_match(gd.cpu(), gi.cpu(), cd, ci, tol=1e-4)

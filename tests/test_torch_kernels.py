@@ -263,6 +263,87 @@ def test_kmeans_mstep_plain_bit_equal_to_jax(k, d, n_empty, int_counts):
         got, tref.kmeans_mstep_ref(*_t(sums, counts, reseed)).numpy())
 
 
+@pytest.mark.parametrize("k,d,empty,int_counts,big", [
+    (8, 128, "some", True, False),
+    (8, 128, "none", False, False),
+    (8, 128, "all", True, False),
+    (1, 4, "all", False, False),
+    (1, 9, "none", True, False),
+    (2048, 16, "some", True, False),
+    (2048, 16, "some", False, True),
+    (300, 5, "some", True, True),
+])
+def test_kmeans_mstep_plain_edges_bit_equal_to_jax(k, d, empty, int_counts,
+                                                   big):
+    """K3's plain version against the Pallas kernel in interpret mode:
+    none, some or all clusters empty (K' = K > #empty), K 1 and 2,048,
+    int32 and f32 counts, and int32 counts above 2^24, where the f32 cast
+    rounds to nearest (both take counts.astype(f32))."""
+    rng = np.random.default_rng(k * 7 + d)
+    sums = rng.normal(size=(k, d)).astype(np.float32)
+    lo, hi = ((1 << 24) + 1, 1 << 30) if big else (1, 50)
+    counts = rng.integers(lo, hi, size=k)
+    n_empty = {"none": 0, "some": max(1, k // 5), "all": k}[empty]
+    counts[rng.choice(k, size=n_empty, replace=False)] = 0
+    counts = counts.astype(np.int32 if int_counts else np.float32)
+    if big and int_counts:
+        assert (counts.astype(np.float32).astype(np.int64)
+                != counts.astype(np.int64)).any()     # rounding happens
+    reseed = rng.normal(size=(k, d)).astype(np.float32)
+    got = tmstep.kmeans_mstep_plain(*_t(sums, counts, reseed)).numpy()
+    want = np.asarray(j_mstep(jnp.asarray(sums), jnp.asarray(counts),
+                              jnp.asarray(reseed), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    empty_rows = counts.astype(np.float32) <= 0
+    np.testing.assert_array_equal(got[empty_rows], reseed[:n_empty])
+
+
+def test_kmeans_mstep_plain_takes_exactly_one_reseed_row_an_empty():
+    """K' = #empty with a non-empty cluster after the last empty one: the
+    plain version gathers only the empty clusters' rows (the JAX kernel
+    takes K' = K, so this edge is the port's own contract)."""
+    sums = np.arange(12, dtype=np.float32).reshape(4, 3)
+    counts = np.asarray([0, 2, 0, 4], np.int32)
+    reseed = np.asarray([[9, 9, 9], [7, 7, 7]], np.float32)
+    got = tmstep.kmeans_mstep_plain(*_t(sums, counts, reseed)).numpy()
+    want = np.stack([reseed[0], sums[1] / 2, reseed[1], sums[3] / 4])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="at least one row"):
+        tmstep.kmeans_mstep_plain(*_t(sums, np.ones(4, np.int32),
+                                      np.zeros((0, 3), np.float32)))
+
+
+@pytest.mark.parametrize("d,addrs,want", [
+    (128, (0, 512, 1024), "vec16"),
+    (4, (16, 32, 48), "vec16"),
+    (128, (4, 512, 1024), "vec4"),        # sums at a 4-byte offset
+    (128, (0, 520, 1024), "vec4"),        # reseed at an 8-byte offset
+    (128, (0, 512, 1036), "vec4"),        # output at a 12-byte offset
+    (130, (0, 512, 1024), "vec4"),        # D % 4 != 0
+    (3, (0, 0, 0), "vec4"),
+])
+def test_kmeans_mstep_variant_is_a_function_of_d_and_addresses(d, addrs,
+                                                               want):
+    assert tmstep.kmeans_mstep_variant(d, *addrs) == want
+    assert tmstep.kmeans_mstep_variant(d, *addrs) == \
+        tmstep.kmeans_mstep_variant(d, *addrs)
+
+
+@pytest.mark.parametrize("k,d", [(1, 128), (2, 128), (8, 128), (2048, 128),
+                                 (14000, 128), (20614, 128), (20614, 3),
+                                 (65, 3), (37, 1)])
+def test_kmeans_mstep_grid_covers_k_with_flag_reads_under_the_output(k, d):
+    """Every row in exactly one block, and the flags the blocks read
+    before their first rows (block b reads b * rows) stay under the
+    output's bytes."""
+    blocks, rows = tmstep.kmeans_mstep_grid(k, d)
+    assert blocks >= 1 and rows >= 1
+    assert (blocks - 1) * rows < k <= blocks * rows
+    flag_bytes = 4 * rows * blocks * (blocks - 1) // 2
+    assert flag_bytes < 4 * k * d
+    assert blocks <= tmstep.MAX_BLOCKS
+
+
 def test_ops_dispatch_cpu_to_plain_versions_without_counting():
     arrays = q8_case(16, 8, 16, 4, 4, seed=5)
     x, c = grid_points(100, 4, 3, seed=1)

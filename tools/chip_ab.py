@@ -20,6 +20,10 @@ script's, so every tree is read with the same yardstick:
   around n launches as they are issued ("events", the host's enqueue time
   included when it is the longer), and the same launches queued behind a
   sleep kernel ("queued", the card's time alone);
+- K3 (``kmeans_mstep``) through its wrapper ``kmeans_mstep_cuda(sums,
+  counts, reseed)`` at chip_smoke's ``K3_SHAPES`` (K 8, 2 and 20,614, D
+  128, int32 counts) on seeded inputs, and the empty kernel's launch floor
+  on a tree that has one;
 - B5 (``pairwise_l2``) through its wrapper ``pairwise_l2_cuda(a, b)`` at
   16,384 x 20,614, 16,384 x 1,929 and 97 x 2 (D 128) on seeded inputs, and
   summed over every launch of the tree's own unfused 100k build (phase 10's
@@ -95,6 +99,18 @@ def kernel_times(cs, time_two_ways) -> dict:
           "wrapper": time_two_ways(lambda: scan.ivf_scan_topk_cuda(
               post, pids, cids, mask, q, k2=k2), n=200)}
     return {"ivf_scan_q8_topk": k1, "ivf_scan_topk": b2}
+
+
+def k3_times(ys) -> dict:
+    """K3 (``kmeans_mstep``) through its wrapper ``kmeans_mstep_cuda`` at
+    this checkout's ``K3_SHAPES`` (int32 counts, as K2 returns them), and
+    the empty kernel's launch floor where the tree has one."""
+    from repro_torch.kernels import cuda_lib
+
+    out = {"kmeans_mstep": ys.k3_shape_times(ys.time_two_ways)}
+    if hasattr(cuda_lib, "launch_floor"):
+        out["launch_floor"] = ys.launch_floor_times()
+    return out
 
 
 B5_SHAPES = {"16384x20614x128": (16384, 20614, 128),
@@ -226,6 +242,7 @@ def run_one(tree: str, rate: float) -> dict:
     out = {"tree": tree, "card": card,
            "kernels": kernel_times(cs, time_two_ways)}
     out["kernels"]["pairwise_l2"] = b5_times(ys)
+    out["kernels"].update(k3_times(ys))
     work = tempfile.mkdtemp(prefix="chip_ab_")
     out["unfused_100k"] = unfused_builds(cs, ys, work)
     built = cs.phase_build(work)
