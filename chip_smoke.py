@@ -97,7 +97,36 @@ Phases, each of which raises on failure:
     p99); nothing lost, K1 once per scan dispatch, ids through the engine
     equal to ``run_sequential``'s up to ties;
 12. the CLI: ``python -m repro_torch.launch.serve`` with the reference's
-    defaults, two indexes, the shard-failure drill and a rebuild + swap.
+    defaults, two indexes, the shard-failure drill and a rebuild + swap;
+    then its fabric mode (``--shards 4 --replicas 2 --kill-shard-at 2
+    --duration 6 --n 100000``), which must exit 0 with one failover,
+    nothing lost and nothing dropped;
+13. the live rebuild: ``delta_build`` of phase 3's corpus with its
+    centroids and settings (200 shards of 5,000) must give phase 3's
+    postings and ids bit for bit; that build deployed as q8 with the flash
+    re-rank (``q8_rebuild_hook``) through ``VersionManager``,
+    ``ServeEngine`` and an ``UpdateLane`` over a 65,536-row
+    ``LiveFreshState`` preloaded with 4,096 seeded inserts and phase 4b's
+    4,096 deletes; a ``RebuildScheduler`` (fill trigger below the preload,
+    a ``DriftMonitor`` attached) started 1 s into a 6 s Poisson trace at
+    0.25x phase 4's QPS with 100 one-vector inserts a second (and 2 s more
+    of the trace once the swap is done): one
+    report (trigger ``delta_fill``, tier q8, carried ops, 200 shards
+    reused and 1 streamed, no failed attempt), nothing dropped, failed or
+    shed, self-queries at rank 0 before, during (on the old epoch, from
+    inside the hook, before the swap) and after (distance exactly 0 from
+    the new flash tier), no tombstoned id, recall@10 >= 0.95x the probe
+    ceiling in each window, K1 once per scan dispatch of both epochs, and
+    a full-mode rebuild giving the same postings bit for bit;
+14. the fabric: ``ShardedFabric`` on phase 3's index, the planner and the
+    merge on the card, the shard scans numpy: S = 1 against phase 8's ids
+    up to ties, S = 8 with every cluster on 2 replicas bit-equal to S = 1
+    on 8 batches of 32; a closed-loop rate through ``ServeEngine``, then a
+    6 s Poisson trace at half of it (hedging off) with shard 1 killed
+    (``FaultInjector(seed=0)``) at 2 s: nothing dropped, partial or
+    failed, no timeout, one failover with nothing lost, the dead shard's
+    epoch retired and its tier released, ``scan_sync`` still bit-equal to
+    S = 1.
 
 The last line of standard output is the device JSON; the script exits
 non-zero, printing no result, when there is no CUDA device or when it runs
@@ -1703,6 +1732,22 @@ def fresh_vectors(spec, n: int, seed: int):
     return v.astype(np.float32)
 
 
+def fresh_deletes(true10):
+    """FRESH_DELETES distinct main ids: phase 4's queries' true top-1, then
+    top-2, ... (sorted)."""
+    import numpy as np
+
+    seen: dict = {}                     # insertion-ordered distinct ids
+    for i in true10.T.ravel().tolist():
+        if len(seen) == FRESH_DELETES:
+            break
+        seen.setdefault(int(i), None)
+    dead = np.asarray(sorted(seen), np.int64)
+    if len(dead) != FRESH_DELETES:
+        raise AssertionError(f"{len(dead)} distinct ids to delete")
+    return dead
+
+
 def live_truth(x_dev, delta, dead, queries, k: int = 10):
     """Exact top-k ids over the live main rows and the live delta rows
     (ids: main row index, then n_main + delta row), on the card."""
@@ -1739,15 +1784,7 @@ def phase_fresh(work: str, built: dict, served: dict) -> dict:
     pipe, batches = served["pipe"], served["batches"]
     x, spec = built["x"], built["spec"]
     n = x.shape[0]
-    true10 = served["true10"]
-    seen: dict = {}                     # insertion-ordered distinct ids
-    for i in true10.T.ravel().tolist():
-        if len(seen) == FRESH_DELETES:
-            break
-        seen.setdefault(int(i), None)
-    dead = np.asarray(sorted(seen), np.int64)
-    if len(dead) != FRESH_DELETES:
-        raise AssertionError(f"{len(dead)} distinct ids to delete")
+    dead = fresh_deletes(served["true10"])
     ins = fresh_vectors(spec, FRESH_INSERTS, seed=4242)
     state = LiveFreshState(dim=x.shape[1], capacity=FRESH_CAPACITY, n_main=n,
                            device=DEVICE)
@@ -2033,7 +2070,8 @@ def phase_streamed_f32(built: dict, served: dict, resident: dict) -> dict:
     log("[streamed-f32] " + " ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in res.items()) + " ids match the resident path up to ties")
-    return {"pipe": pipe, "batch0": batches[0], **res}
+    return {"pipe": pipe, "batch0": batches[0], "ids": ids, "dists": dists,
+            "nprobe": nprobe, **res}
 
 
 # --------------------------------------------------------------------------
@@ -2533,6 +2571,539 @@ def phase_engine(work: str, built: dict, served: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 13: the live delta rebuild on phase 3's index
+# --------------------------------------------------------------------------
+REBUILD_FILL = 0.05              # delta_fill_frac: below the preload's
+                                 # 4,096 / 65,536 = 0.0625
+REBUILD_SELF = 32                # self-queries a window
+REBUILD_WAIT_S = 300.0           # bound on the swap and the epoch retire
+REBUILD_TAIL_S = 2.0             # trace seconds replayed after the swap
+
+
+def collect(engine, into: dict) -> None:
+    """Drain the engine's CQ into ``into`` (req_id -> completion)."""
+    for c in engine.qp.poll():
+        into[c.req_id] = c
+
+
+def await_ids(engine, comps: dict, rids, timeout_s: float = 120.0) -> None:
+    """Collect completions until every request of ``rids`` has one."""
+    t_end = time.monotonic() + timeout_s
+    while not all(r in comps for r in rids):
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{sum(r not in comps for r in rids)} "
+                                 f"requests never completed")
+        engine.qp.wait_completions(1, timeout=0.05)
+        collect(engine, comps)
+
+
+def window_of(c, rep) -> str:
+    """Which side of the rebuild a completion landed on."""
+    if c.completed < rep.t_start:
+        return "before"
+    return "during" if c.completed < rep.t_swapped else "after"
+
+
+def submit_all(engine, name: str, queries) -> list:
+    return [engine.submit(q, 10, index=name, block=True) for q in queries]
+
+
+def phase_rebuild(work: str, built: dict, served: dict) -> dict:
+    """The live delta rebuild on phase 3's corpus and centroids (module
+    doc, phase 13)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distance import recall_at_k, squared_l2
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+    from repro_torch.launch.serve import warm_batch_sizes
+    from repro_torch.lifecycle import (
+        CorpusStore, DriftMonitor, LiveFreshState, RebuildPolicy,
+        RebuildScheduler, UpdateLane, VersionManager, delta_build,
+        q8_rebuild_hook)
+    from repro_torch.obs import Observability, check_well_nested
+    from repro_torch.runtime import BatchPolicy, DynamicBatcher, \
+        ServeEngine, TenantSpec, multi_tenant_trace
+
+    x, spec, index, cfg = built["x"], built["spec"], built["index"], \
+        built["cfg"]
+    n = x.shape[0]
+    cents = index.centroids.cpu().numpy()
+    wd = os.path.join(work, "rebuild")
+    build_kw = dict(cluster_len=cfg.cluster_len, eps=cfg.closure_eps,
+                    max_replicas=cfg.max_replicas,
+                    per_task=cfg.coarse_per_task)
+    corpus = CorpusStore(x)
+    t0 = time.perf_counter()
+    cold, cold_stats = delta_build(corpus.view(), cents, wd, device=DEVICE,
+                                   **build_kw)
+    cold_s = time.perf_counter() - t0
+    if not (torch.equal(cold.postings, index.postings)
+            and torch.equal(cold.posting_ids, index.posting_ids)):
+        raise AssertionError("cold delta_build differs from phase 3's index")
+    log(f"[rebuild] cold delta_build {cold_s:.3f} s: "
+        f"{cold_stats['shards_total']} shards streamed, postings and ids "
+        f"bit-equal to phase 3's index")
+    # the deployment: q8 + flash re-rank over the cold build, a 65,536-row
+    # delta preloaded with 4,096 inserts and 4,096 deletes
+    scfg = SearchConfig(**SERVE_CFG, use_kernel=True, fused_topk=True)
+    policy = BatchPolicy(**ENGINE_POLICY)
+    flash_dir = os.path.join(work, "rebuild-flash")
+    os.makedirs(flash_dir, exist_ok=True)
+    hook = q8_rebuild_hook(corpus, built["llsp"], scfg, flash_dir=flash_dir,
+                           name=spec.name,
+                           warm_sizes=warm_batch_sizes(policy, 16),
+                           device=DEVICE)
+    state = LiveFreshState(dim=x.shape[1], capacity=FRESH_CAPACITY,
+                           n_main=n, device=DEVICE)
+    ins = fresh_vectors(spec, FRESH_INSERTS, seed=4343)
+    dead = fresh_deletes(served["true10"])
+    minted = state.insert(ins)
+    state.delete(dead)
+    state.publish()
+    obs = Observability(1.0, enabled=True)
+    drift = DriftMonitor(cents, metrics=obs.metrics, trace=obs.trace)
+    near = torch.argmin(squared_l2(torch.from_numpy(ins).to(DEVICE),
+                                   index.centroids), dim=1)
+    drift.observe(ins, near.cpu().numpy())
+    pipe0 = hook(cold, state)
+    old_pids = pipe0.tier.posting_ids  # the tier drops it when it retires
+    comps: dict = {}                   # req_id -> completion (main thread)
+    selfq: dict = {}                   # window -> req_ids
+    own = ins[:REBUILD_SELF]
+
+    def build_then_query(index, new_state):
+        """The scheduler's hook: build the new epoch, then, before the swap,
+        run the self-queries through the engine on the old epoch."""
+        pipe = hook(index, new_state)
+        selfq["during"] = submit_all(engine, spec.name, own)
+        t_end = time.monotonic() + 120.0
+        while not all(r in comps for r in selfq["during"]) \
+                and time.monotonic() < t_end:
+            time.sleep(0.01)
+        return pipe
+
+    vm = VersionManager()
+    ep0 = vm.deploy(spec.name, pipe0, fresh=state)
+    lane = UpdateLane(state, obs=obs)
+    engine = ServeEngine({spec.name: pipe0},
+                         DynamicBatcher(policy, [spec.name]), depth=2,
+                         obs=obs, update_lanes={spec.name: lane})
+    vm.bind(engine)
+    sched = RebuildScheduler(
+        name=spec.name, corpus=corpus, centroids=cents, workdir=wd,
+        lane=lane, versions=vm, make_pipeline=build_then_query,
+        cluster_len=cfg.cluster_len, closure_eps=cfg.closure_eps,
+        max_replicas=cfg.max_replicas,
+        policy=RebuildPolicy(delta_fill_frac=REBUILD_FILL,
+                             per_task=cfg.coarse_per_task),
+        drift=drift, obs=obs)
+    if sched.due() != "delta_fill":
+        raise AssertionError(f"rebuild not due on the preload: "
+                             f"{sched.due()!r}")
+    pool = np.concatenate([q for q, _ in served["batches"]])
+    tenant = TenantSpec(spec.name, 0.25 * served["qps"], topk_lo=10,
+                        topk_hi=50, n_queries=len(pool))
+    trace = multi_tenant_trace([tenant], ENGINE_TRACE_S, seed=41)
+    # traffic after the swap, whenever it comes: the same rate, 2 s
+    tail = multi_tenant_trace([tenant], REBUILD_TAIL_S, seed=42)
+    rng = np.random.default_rng(79)
+    ins_t = np.cumsum(rng.exponential(1.0 / UPDATE_RATE, size=int(
+        3 * UPDATE_RATE * ENGINE_TRACE_S)))
+    ins_t = ins_t[ins_t < ENGINE_TRACE_S].tolist()
+    ins_v = fresh_vectors(spec, len(ins_t), seed=80)
+    search: dict = {}                  # req_id -> (pool row, topk)
+
+    def arrive(t0, arr):
+        """Submit one trace arrival at its time."""
+        lag = t0 + arr.t - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        rid = engine.submit(pool[arr.qrow], arr.topk, index=spec.name)
+        if rid >= 0:
+            search[rid] = (arr.qrow, arr.topk)
+        collect(engine, comps)
+
+    LAUNCHES.reset()
+    engine.start()
+    try:
+        selfq["before"] = submit_all(engine, spec.name, own)
+        await_ids(engine, comps, selfq["before"])
+        t0 = time.monotonic()
+        j = 0
+        started = False
+        for arr in trace:
+            if not started and time.monotonic() - t0 >= 1.0:
+                sched.start(poll_s=0.05)
+                started = True
+            if "after" not in selfq and sched.swapped.is_set():
+                selfq["after"] = submit_all(engine, spec.name, own)
+            while j < len(ins_t) and ins_t[j] <= arr.t:
+                lane.submit_insert(ins_v[j:j + 1])
+                drift.observe(ins_v[j:j + 1])
+                j += 1
+            arrive(t0, arr)
+        for j in range(j, len(ins_t)):
+            lane.submit_insert(ins_v[j:j + 1])
+        span = time.monotonic() - t0
+        while not sched.swapped.wait(0.05):
+            collect(engine, comps)
+            if time.monotonic() - t0 > REBUILD_WAIT_S:
+                raise AssertionError(f"no swap within {REBUILD_WAIT_S} s; "
+                                     f"failures {sched.failures}")
+        if "after" not in selfq:
+            selfq["after"] = submit_all(engine, spec.name, own)
+        t1 = time.monotonic()
+        for arr in tail:
+            arrive(t1, arr)
+        await_ids(engine, comps,
+                  [r for v in selfq.values() for r in v] + list(search))
+        if not ep0.finalized.wait(REBUILD_WAIT_S):
+            raise AssertionError("the old epoch never retired")
+    finally:
+        sched.stop()
+        engine.stop(drain=True)
+        collect(engine, comps)
+    torch.cuda.synchronize()
+    launches = path_launches("live rebuild, both epochs (phase 13)")
+    if sched.failures:
+        raise AssertionError(f"rebuild attempts failed: {sched.failures}")
+    if len(sched.reports) != 1:
+        raise AssertionError(f"{len(sched.reports)} rebuilds, not 1")
+    rep = sched.reports[0]
+    pipe1 = vm.current(spec.name).pipeline
+    st = engine.stats
+    lane_st = update_lane_stats(lane, len(ins_t))
+    checks = {
+        "trigger": rep.trigger == "delta_fill", "tier": rep.tier == "q8",
+        "carried": rep.carried_ops > 0,
+        "reused": rep.shards_reused == cold_stats["shards_total"],
+        "streamed": rep.shards_streamed == 1,
+        "dropped": st.submitted - st.rejected - st.completed == 0
+        and st.rejected == 0,
+        "failed": st.failed == 0, "shed": st.shed == 0 and st.degraded == 0,
+        "folded": rep.folded_inserts >= FRESH_INSERTS
+        and rep.folded_deletes == FRESH_DELETES,
+        "flash": pipe1.flash.n == n + rep.folded_inserts}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"rebuild checks {bad} failed: {rep}, "
+                             f"engine {st}")
+    k1 = launches["ivf_scan_q8_topk"]
+    warm_new = sum(hook.warmed[1:])
+    if k1 != st.batches + warm_new:
+        raise AssertionError(f"rebuild: K1 launched {k1} times for "
+                             f"{st.batches} batches + {warm_new} warm scans "
+                             f"of the new epoch")
+    # self-queries at rank 0 before, during and after; after the swap from
+    # the main postings with the exact re-rank distance (0 for itself)
+    for win, rids in selfq.items():
+        got = np.stack([comps[r].ids for r in rids])
+        miss = int((got[:, 0] != minted[:REBUILD_SELF]).sum())
+        if miss:
+            raise AssertionError(f"rebuild ({win}): {miss} self-queries "
+                                 f"missed rank 0")
+    d0 = np.array([comps[r].dists[0] for r in selfq["after"]])
+    if (d0 != 0.0).any():
+        raise AssertionError(f"rebuild: self-query distance after the swap "
+                             f"{d0.max()}, not the exact 0")
+    if any(window_of(comps[r], rep) != "during" for r in selfq["during"]):
+        raise AssertionError("a 'during' self-query completed outside the "
+                             "build")
+    new_pids = pipe1.tier.posting_ids
+    if not np.isin(minted, new_pids).all():
+        raise AssertionError("folded inserts missing from the new postings")
+    all_ids = np.concatenate([c.ids for c in comps.values()
+                              if c.ids is not None])
+    if set(dead.tolist()) & set(all_ids.tolist()):
+        raise AssertionError("a tombstoned id came back")
+    # a second, full-mode rebuild of the same corpus: the same postings
+    tomb = np.zeros(corpus.n, bool)
+    tomb[dead] = True
+    t1 = time.perf_counter()
+    full, _ = delta_build(corpus.view(), cents, wd, tombstone=tomb,
+                          use_manifest=False, device=DEVICE, **build_kw)
+    full_s = time.perf_counter() - t1
+    if not (torch.equal(full.postings, pipe1.index.postings)
+            and np.array_equal(full.posting_ids.cpu().numpy(), new_pids)):
+        raise AssertionError("full-mode rebuild differs from the delta one")
+    del full
+    # recall and latency before, during and after the swap, against the
+    # live corpus at the end (main + every insert, minus the deletes)
+    rid_list = list(search)
+    rows = np.array([search[r][0] for r in rid_list])
+    tks = np.array([search[r][1] for r in rid_list], np.int32)
+    truth = live_truth(torch.from_numpy(x).to(DEVICE),
+                       torch.from_numpy(np.concatenate([ins, ins_v])).to(
+                           DEVICE), dead, pool[rows])
+    cids = np.concatenate([pipe0.route(pool[rows[i:i + 256]],
+                                       tks[i:i + 256])[0]
+                           for i in range(0, len(rows), 256)])
+    stamps = rep.stage2["shard_stamps"]
+    res = {"cold_s": cold_s, "full_s": full_s,
+           "snapshot_s": rep.t_snapshot - rep.t_start,
+           "build_s": rep.t_built - rep.t_snapshot,
+           "swap_s": rep.t_swapped - rep.t_built,
+           "io_cut_x": rep.io_cut_x, "folded_inserts": rep.folded_inserts,
+           "carried_ops": rep.carried_ops,
+           "shards_streamed": rep.shards_streamed,
+           "shards_reused": rep.shards_reused,
+           "bytes_streamed": rep.bytes_streamed,
+           "stage2_load_s": sum(s["load_end"] - s["load_start"]
+                                for s in stamps),
+           "stage2_stream_s": sum(s["stream_end"] - s["load_end"]
+                                  for s in stamps),
+           "stage2_assign_s": sum(s["assign_done"] - s["assign_dispatch"]
+                                  for s in stamps),
+           "stage2_harvest_s": sum(s["harvest_end"] - s["assign_done"]
+                                   for s in stamps),
+           "postings_s": rep.stage2["postings_s"],
+           "offered_qps": len(trace) / ENGINE_TRACE_S,
+           "arrival_span_s": span, "tail_arrivals": len(tail),
+           "submitted": st.submitted,
+           "completed": st.completed, "batches": st.batches,
+           "k1_launches": k1, "warm_new_epoch": warm_new,
+           "drift_max_shift": drift.summary()["max_shift"],
+           "drift_advisories": drift.advisories, "updates": lane_st}
+    low = []
+    for win in ("before", "during", "after"):
+        idx = [i for i, r in enumerate(rid_list)
+               if window_of(comps[r], rep) == win]
+        if not idx:
+            low.append(f"no search completed {win}")
+            continue
+        ids = np.stack([comps[rid_list[i]].ids for i in idx])
+        npb = [comps[rid_list[i]].nprobe for i in idx]
+        pids = new_pids if win == "after" else old_pids
+        first_delta = n + rep.folded_inserts if win == "after" else n
+        hits = 0
+        for a, i in enumerate(idx):
+            probed = pids[cids[i, : npb[a]]].ravel()
+            hits += int((np.isin(truth[i], probed)
+                         | (truth[i] >= first_delta)).sum())
+        recall = recall_at_k(ids, truth[idx])
+        ceiling = hits / (len(idx) * truth.shape[1])
+        lat = np.array([comps[rid_list[i]].latency for i in idx]) * 1e3
+        res[win] = {"queries": len(idx), "recall10": recall,
+                    "probe_ceiling": ceiling,
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99))}
+        if recall < 0.95 * ceiling:
+            low.append(f"{win}: recall@10 {recall} below 0.95 x the probe "
+                       f"ceiling {ceiling}")
+    log("[rebuild] " + " ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in res.items()))
+    if low:
+        raise AssertionError(f"rebuild: {low}")
+    check_well_nested(obs.trace.export()["traceEvents"])
+    for p in (pipe0, pipe1):
+        p.close()
+        p.flash.release()
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 14: the sharded fabric on phase 3's index
+# --------------------------------------------------------------------------
+FABRIC_SHARDS = 8
+FABRIC_KILL_AT = 2.0             # seconds into the live trace
+FABRIC_CLOSED = 2048             # queries of the closed-loop measurement
+
+
+def fabric_sync(fab, batches) -> tuple:
+    """``scan_sync`` over ``batches``: (ids, dists, nprobe, partial)."""
+    import numpy as np
+
+    outs = [fab.scan_sync(q, tk) for q, tk in batches]
+    return tuple(np.concatenate([getattr(o, f) for o in outs])
+                 for f in ("ids", "dists", "nprobe", "partial"))
+
+
+def same_bits(a: tuple, b: tuple, what: str) -> None:
+    import numpy as np
+
+    for name, x, y in zip(("ids", "dists"), a, b):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {name} differ in "
+                                 f"{int((x != y).any(axis=1).sum())} rows")
+
+
+def fabric_closed_qps(fab, name: str, queries) -> float:
+    """The rate ``fab`` sustains through the engine with every query in the
+    SQ at once.  Its heartbeat never declares a shard dead: at full load a
+    shard's task (numpy, the workers share one interpreter lock) can run
+    longer than three ticks."""
+    from repro_torch.runtime import BatchPolicy, DynamicBatcher, ServeEngine
+
+    fab.warmup()
+    fab.start()
+    engine = ServeEngine({name: fab}, DynamicBatcher(
+        BatchPolicy(**ENGINE_POLICY), [name]), depth=2)
+    engine.start()
+    comps: dict = {}
+    try:
+        t0 = time.monotonic()
+        rids = submit_all(engine, name, queries)
+        await_ids(engine, comps, rids, timeout_s=300.0)
+        qps = len(rids) / (time.monotonic() - t0)
+    finally:
+        engine.stop(drain=True)
+        fab.close()
+    st = engine.stats
+    if st.completed != st.submitted or st.failed or st.partial \
+            or fab.stats.failovers:
+        raise AssertionError(f"fabric closed loop: {st}, failovers "
+                             f"{fab.stats.failovers}")
+    log(f"[fabric] closed loop: {len(queries)} queries at {qps:.1f} q/s, "
+        f"tasks {fab.stats.tasks_per_shard.tolist()}, busy_s "
+        f"{[round(b, 3) for b in fab.stats.busy_s.tolist()]}, hedges "
+        f"{fab.stats.hedges}")
+    return qps
+
+
+def phase_fabric(built: dict, served: dict, streamed: dict) -> dict:
+    """The fabric on phase 3's index (module doc, phase 14)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.distributed import FaultInjector, ShardedFabric
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+    from repro_torch.runtime import BatchPolicy, DynamicBatcher, \
+        ServeEngine, TenantSpec, multi_tenant_trace
+
+    index, llsp = built["index"], built["llsp"]
+    scfg = SearchConfig(**SERVE_CFG, use_kernel=True, fused_topk=True)
+    batches = served["batches"][:PARITY_BATCHES]
+    t0 = time.perf_counter()
+    one = ShardedFabric(index, llsp, scfg, n_shards=1, device=DEVICE)
+    setup1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = fabric_sync(one, batches)
+    sync1_s = time.perf_counter() - t0
+    one.close()
+    del one
+    gc.collect()
+    # S = 1 against phase 8's f32 streamed path: the same probed clusters
+    # scanned exactly, so ids agree up to ties where the plans agree
+    nb = len(ref[0])
+    same = ref[2] == streamed["nprobe"][:nb]
+    flips = int((~same).sum())
+    if flips > 0.02 * nb:
+        raise AssertionError(f"fabric vs phase 8: {flips} nprobe flips")
+    candidates_match(ref[1][same], ref[0][same], streamed["dists"][:nb][same],
+                     streamed["ids"][:nb][same], F32_TOL,
+                     "fabric S=1 vs the f32 streamed path")
+    def s8(**kw):
+        return ShardedFabric(index, llsp, scfg, n_shards=FABRIC_SHARDS,
+                             n_replicas=2, device=DEVICE,
+                             hot_clusters=np.arange(index.n_clusters), **kw)
+
+    # the drill's fabric: hedging off, so every batch that holds a task on
+    # the silent victim waits for the heartbeat's verdict (3 ticks of
+    # 50 ms) and is requeued, whatever the traffic's timing
+    t0 = time.perf_counter()
+    fab = s8(hedge_after_s=30.0)
+    setup8 = time.perf_counter() - t0
+    out = {"setup_s": {"S1": setup1, f"S{FABRIC_SHARDS}": setup8},
+           "sync1_s": sync1_s, "flips_vs_phase8": flips}
+    try:
+        same_bits(fabric_sync(fab, batches), ref,
+                  f"scan_sync S={FABRIC_SHARDS} vs S=1")
+        log(f"[fabric] scan_sync S={FABRIC_SHARDS} R=2 bit-equal to S=1 on "
+            f"{nb} queries; S=1 matches phase 8 up to ties ({flips} nprobe "
+            f"flips); setup {setup1:.2f} / {setup8:.2f} s")
+        name = built["spec"].name
+        pool = np.concatenate([q for q, _ in served["batches"]])
+        closed_qps = fabric_closed_qps(s8(miss_threshold=1 << 30), name,
+                                       pool[:FABRIC_CLOSED])
+        rate = 0.5 * closed_qps
+        fab.warmup()
+        fab.start()
+        engine = ServeEngine({name: fab}, DynamicBatcher(
+            BatchPolicy(**ENGINE_POLICY), [name]), depth=2)
+        engine.start()
+        comps: dict = {}
+        LAUNCHES.reset()
+        try:
+            trace = multi_tenant_trace(
+                [TenantSpec(name, rate, topk_lo=10, topk_hi=50,
+                            n_queries=len(pool))], ENGINE_TRACE_S, seed=43)
+            inj = FaultInjector(seed=0).kill(FABRIC_KILL_AT, shard=1)
+            fab.injector = inj
+            live: list = []
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                inj.arm(t0)
+                for arr in trace:
+                    lag = t0 + arr.t - time.monotonic()
+                    if lag > 0:
+                        time.sleep(lag)
+                    live.append(engine.submit(pool[arr.qrow], arr.topk,
+                                              index=name))
+                    collect(engine, comps)
+                span = time.monotonic() - t0
+                await_ids(engine, comps, [r for r in live if r >= 0],
+                          timeout_s=300.0)
+                wall = time.monotonic() - t0
+                torch.cuda.synchronize()
+        finally:
+            engine.stop(drain=True)
+            fab.stop()
+            collect(engine, comps)
+        launches = path_launches("fabric drill (phase 14)")
+        st, fs = engine.stats, fab.stats
+        retired = fab.epochs[1].finalized.wait(60.0) \
+            and fab.nodes[1].tier.released
+        lat = np.array([comps[r].latency for r in live if r >= 0]) * 1e3
+        busy_us = device_busy_us(prof)
+        out.update({
+            "closed_qps": closed_qps, "offered_qps": len(trace) /
+            ENGINE_TRACE_S, "arrival_span_s": span, "wall_s": wall,
+            "submitted": st.submitted, "completed": st.completed,
+            "rejected": st.rejected, "partial": st.partial,
+            "failed": st.failed, "shed": st.shed,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "kills": [(k, s) for _, k, s in inj.log],
+            "failovers": fs.failovers, "timeouts": fs.timeouts,
+            "hedges": fs.hedges, "requeued": fs.requeued_tasks,
+            "dead_replies": fs.dead_replies,
+            "tasks_per_shard": fs.tasks_per_shard.tolist(),
+            "busy_s_per_shard": [round(b, 4) for b in fs.busy_s.tolist()],
+            "planner_device_busy": (busy_us / (wall * 1e6)
+                                    if busy_us >= 0 else -1.0),
+            "retired": bool(retired)})
+        log("[fabric] " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in out.items()))
+        checks = {
+            "dropped": st.submitted - st.rejected - st.completed == 0
+            and st.rejected == 0,
+            "partial": st.partial == 0 and fs.partial_queries == 0,
+            "failed": st.failed == 0, "timeouts": fs.timeouts == 0,
+            "kill": out["kills"] == [("kill", 1)],
+            "failover": [f["shard"] for f in fs.failovers] == [1]
+            and fs.failovers[0]["lost"] == 0,
+            "retired": retired,
+            "no kernel": not any(launches.values())}
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"fabric drill checks {bad} failed")
+        same_bits(fabric_sync(fab, batches), ref,
+                  "scan_sync after the failover vs S=1")
+        log(f"[fabric] after the failover scan_sync is bit-equal to S=1")
+    finally:
+        fab.close()
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 12: the port's CLI with the reference's own defaults
 # --------------------------------------------------------------------------
 def phase_cli(work: str) -> dict:
@@ -2580,7 +3151,45 @@ def phase_cli(work: str) -> dict:
     log(f"[cli] {done[0]} ({secs:.1f} s including three builds of "
         f"{CLI_N} vectors)")
     return {"seconds": secs, "done": done[0], "recalls": recalls,
-            "heartbeat_failed": detected}
+            "heartbeat_failed": detected, "fabric": phase_cli_fabric(env)}
+
+
+def phase_cli_fabric(env: dict) -> dict:
+    """The CLI's fabric mode: 4 shards, R = 2, a seeded kill at 2 s; it
+    must exit 0, fail over once with nothing lost and drop nothing."""
+    import re
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+           DEVICE, "--shards", "4", "--replicas", "2", "--kill-shard-at",
+           "2", "--duration", "6", "--n", str(CLI_N)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    text = proc.stdout
+    for line in text.splitlines():
+        if line.startswith(("[deploy]", "[fabric]", "[fault]", "[health]",
+                            "[quality]")):
+            log(f"[cli-fabric] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"fabric CLI exited {proc.returncode}:\n"
+                             f"{text[-3000:]}\n{proc.stderr[-3000:]}")
+    health = re.search(r"\[health\] \w+: recall@10=([\d.]+) through the "
+                       r"engine, dropped=(-?\d+)", text)
+    fails = re.findall(r"\[fault\] shard (\d+) failed over: (\d+) clusters "
+                       r"moved to replicas, (\d+) lost", text)
+    done = re.search(r"\[fabric\] (\d+) completions .* shed=(\d+) "
+                     r"partial=(\d+) failed=(\d+)", text)
+    if not health or int(health.group(2)) != 0:
+        raise AssertionError("fabric CLI: dropped requests or no [health]")
+    if len(fails) != 1 or fails[0][2] != "0":
+        raise AssertionError(f"fabric CLI: failovers {fails}")
+    if not done or done.group(3) != "0" or done.group(4) != "0":
+        raise AssertionError("fabric CLI: partial or failed completions")
+    log(f"[cli-fabric] exit 0 in {secs:.1f} s, one failover, 0 lost, "
+        f"0 dropped")
+    return {"seconds": secs, "recall10": float(health.group(1)),
+            "completions": int(done.group(1)), "failover": fails[0]}
 
 
 # --------------------------------------------------------------------------
@@ -3271,6 +3880,8 @@ def main() -> int:
         phase_cpu_resident(built, served, resident)
         phase_unfused(work)
         phase_engine(work, built, served)
+        phase_rebuild(work, built, served)
+        phase_fabric(built, served, streamed)
         phase_cli(work)
         rows = phase_times(built, served, kernel_errs, resident, streamed)
     finally:

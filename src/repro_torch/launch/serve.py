@@ -1,4 +1,5 @@
-"""Serving launcher, single-node mode (port of ``repro.launch.serve``).
+"""Serving launcher (port of ``repro.launch.serve``): the single-node
+daemon and the sharded fabric drill.
 
 A node daemon over the port's serving runtime: arrivals from a seeded
 multi-tenant Poisson trace are submitted one query at a time to the
@@ -17,16 +18,22 @@ Responsibilities (container-scale versions of the production node):
     on a simulated shard failure (``--fail-shard``), recall probes through
     the engine, quality/SLO telemetry;
   * freshness: a mid-run rebuild + epoch swap (``--rebuild``) while the
-    engine keeps serving.
+    engine keeps serving;
+  * fleet (``--shards S > 0``, :func:`run_fabric`): one index behind the
+    sharded, replicated fabric (``distributed/fabric.py``), with a seeded
+    kill of a live shard mid-trace (``--kill-shard-at``).
 
 The scan runs the port's CUDA kernels on the card (``--device cuda``, the
 default); ``--device cpu`` runs their plain versions, and ``--no-kernel``
-picks the packed-domain oracle instead of the fused scan.  The sharded
-fabric (``--shards > 0``) is not ported.
+picks the packed-domain oracle instead of the fused scan.  In fabric mode
+the planner and the merge run on the device and the shard scans in numpy
+on the host, as in the reference.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --indexes 2 --duration 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 4000
+  PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --replicas 2 \
+      --kill-shard-at 2 --duration 6
 """
 from __future__ import annotations
 
@@ -49,7 +56,12 @@ from repro_torch.core.search import SearchConfig
 from repro_torch.data.synthetic import PAPER_DATASETS, make_queries, \
     make_vectors
 from repro_torch.device import resolve_device
-from repro_torch.distributed import HeartbeatMonitor, plan_failover
+from repro_torch.distributed import (
+    FaultInjector,
+    HeartbeatMonitor,
+    ShardedFabric,
+    plan_failover,
+)
 from repro_torch.lifecycle import VersionManager
 from repro_torch.obs import (
     HarvestRing,
@@ -73,12 +85,6 @@ from repro_torch.runtime import (
 from repro_torch.runtime.pipeline import _vectors_from_postings
 from repro_torch.storage import ChunkArena, IndexMeta, TieredPostings, \
     make_replica_map, plan_striping
-
-FABRIC_NOT_PORTED = (
-    "--shards > 0, --replicas and --kill-shard-at drive the sharded fabric "
-    "(repro.distributed.fabric), which the torch port does not have yet; "
-    "use the single-node pipeline (--shards 0, the other two unset)")
-
 
 @dataclasses.dataclass
 class Deployment:
@@ -308,15 +314,147 @@ def warm_batch_sizes(policy: BatchPolicy, pad_batch: int) -> tuple:
     return tuple(range(pad_batch, top + 1, pad_batch))
 
 
+FABRIC_TIER_ERROR = (
+    "--tier q8 is not supported in fabric mode (--shards > 0): the fabric "
+    "shards f32 postings and has no quantized tier; drop --tier q8 (fabric "
+    "serves f32) or use the single-node pipeline (--shards 0)")
+
+
+def run_fabric(args) -> dict:
+    """Fabric drill mode (``--shards > 0``): one index (dim 32, f32) served
+    behind the sharded, replicated fabric through the engine, with the
+    quality stack (the fabric's coverage proxy, shadow audits against the
+    corpus) and an optional seeded kill mid-trace.  Every cluster is hot
+    (replicated) when ``--replicas`` > 1.  Rejects an explicit ``--tier
+    q8``.  Prints what the reference prints and returns the numbers."""
+    if getattr(args, "tier", None) == "q8":
+        raise ValueError(FABRIC_TIER_ERROR)
+    if args.health_out and args.health_every <= 0:
+        args.health_every = 1.0
+    dev = resolve_device(args.device)
+    scfg = SearchConfig(k=10, nprobe_max=16, pruning="llsp", n_ratio=8,
+                        use_kernel=not args.no_kernel, fused_topk=True)
+    arena = ChunkArena(n_devices=12, device_bytes=1 << 30,
+                       chunk_bytes=1 << 20)
+    deadline_s = args.deadline_ms * 1e-3 or None
+    name = list(PAPER_DATASETS)[0]
+    with tempfile.TemporaryDirectory() as root:
+        spec = dataclasses.replace(PAPER_DATASETS[name], n=args.n, dim=32)
+        dep = deploy(arena, name, spec, os.path.join(root, name),
+                     args.shards, scfg, tier="f32", device=dev)
+        inj = None
+        if args.kill_shard_at > 0:
+            inj = FaultInjector(seed=0).kill(args.kill_shard_at)
+        hot = (np.arange(dep.index.n_clusters) if args.replicas > 1
+               else None)
+        obs = make_obs(args)
+        fab = ShardedFabric(dep.index, dep.llsp, scfg,
+                            n_shards=args.shards,
+                            n_replicas=args.replicas, hot_clusters=hot,
+                            injector=inj, hedge_after_s=0.05, tick_s=0.02,
+                            obs=obs, device=dev)
+        fab.warmup()
+        fab.start()
+        # fabric quality: the coverage proxy rides every BatchResult; the
+        # shadow audit lane brute-forces against the reconstructed corpus
+        quality, harvest, slo = make_quality_stack(
+            args, obs, vectors=_vectors_from_postings(dep.index))
+        engine = ServeEngine(
+            {name: fab},
+            DynamicBatcher(BatchPolicy(max_batch=args.batch,
+                                       max_wait_s=0.05), [name]),
+            depth=args.depth, obs=obs, quality=quality)
+        engine.start()
+        trace = multi_tenant_trace(
+            [TenantSpec(name, args.rate, topk_lo=10, topk_hi=50,
+                        deadline_s=deadline_s, n_queries=256)],
+            args.duration)
+        print(f"[fabric] {args.shards} shards x R={args.replicas}, "
+              f"replaying {len(trace)} arrivals over {args.duration:.0f}s"
+              + (f", kill drill at t={args.kill_shard_at:.1f}s"
+                 if inj is not None else "")
+              + f" (device={dev.type})", flush=True)
+        t0 = time.monotonic()
+        if inj is not None:
+            inj.arm(t0)
+        # bounded recent window (heartbeat means only); the full-run
+        # percentiles come from the engine's streaming latency histogram
+        lat: collections.deque = collections.deque(maxlen=2048)
+        next_metrics = args.metrics_every or float("inf")
+        next_health = args.health_every or float("inf")
+        try:
+            for arr in trace:
+                lag = t0 + arr.t - time.monotonic()
+                if lag > 0:
+                    time.sleep(lag)
+                engine.submit(dep.queries[arr.qrow], arr.topk, index=name,
+                              deadline_s=arr.deadline_s)
+                if time.monotonic() - t0 >= next_metrics:
+                    next_metrics += args.metrics_every
+                    for line in obs.metrics.render():
+                        print(f"[metrics] {line}")
+                if time.monotonic() - t0 >= next_health:
+                    next_health += args.health_every
+                    emit_health(args, quality, harvest, slo, obs.metrics)
+            r = probe_recall(engine, dep, lat, name)
+        finally:
+            engine.stop(drain=True)
+            fab.close()
+        engine.qp.poll()
+        st, fs = engine.stats, fab.stats
+        wall = time.monotonic() - t0
+        pct = obs.metrics.histogram("engine.latency_s").summary_ms()
+        qps = (st.completed - st.shed) / wall
+        print(f"[fabric] {st.completed} completions in {wall:.1f}s "
+              f"({qps:.0f} q/s), "
+              f"p50={pct['p50_ms']:.0f}ms p99={pct['p99_ms']:.0f}ms, "
+              f"shed={st.shed} partial={st.partial} failed={st.failed}")
+        for f in fs.failovers:
+            print(f"[fault] shard {f['shard']} failed over: "
+                  f"{f['moved']} clusters moved to replicas, "
+                  f"{f['lost']} lost")
+        if inj is not None:
+            print(f"[fault] injector log: "
+                  f"{[(round(t, 2), k, s) for t, k, s in inj.log]}, "
+                  f"dead_replies={fs.dead_replies} "
+                  f"requeued={fs.requeued_tasks} hedges={fs.hedges}")
+        print(f"[fabric] busy_s per shard: "
+              f"{[round(b, 3) for b in fs.busy_s.tolist()]}, tasks "
+              f"{fs.tasks_per_shard.tolist()}")
+        dropped = st.submitted - st.completed
+        print(f"[health] {name}: recall@10={r:.3f} through the engine, "
+              f"dropped={dropped} (rejected at submit {st.rejected})")
+        finish_quality(args, quality, harvest, slo, obs.metrics)
+        finish_obs(obs, args)
+        retired = [s for s in sorted(fab.failed)
+                   if fab.epochs[s].finalized.is_set()
+                   and fab.nodes[s].tier.released]
+        undeploy(arena, dep)
+        arena.validate()
+    return {"device": dev.type, "shards": args.shards,
+            "replicas": args.replicas, "arrivals": len(trace),
+            "submitted": st.submitted, "rejected": st.rejected,
+            "completed": st.completed, "dropped": dropped, "shed": st.shed,
+            "partial": st.partial, "failed": st.failed, "wall_s": wall,
+            "qps": qps, "p50_ms": pct["p50_ms"], "p99_ms": pct["p99_ms"],
+            "recall": r, "failovers": list(fs.failovers),
+            "kills": [] if inj is None else [(k, s) for _, k, s in inj.log],
+            "retired": retired, "timeouts": fs.timeouts,
+            "partial_queries": fs.partial_queries, "hedges": fs.hedges,
+            "requeued": fs.requeued_tasks, "dead_replies": fs.dead_replies,
+            "busy_s": fs.busy_s.tolist(),
+            "tasks_per_shard": fs.tasks_per_shard.tolist()}
+
+
 def run_single_node(args) -> dict:
     """The single-node serving run: deploy ``--indexes`` indexes, replay an
     open-loop multi-tenant trace through the engine with the optional
     shard-failure drill and mid-run rebuild + swap, probe recall through the
     engine, and flush telemetry.  Prints what the reference prints and
-    returns the same numbers."""
-    if args.shards > 0 or args.replicas is not None \
-            or args.kill_shard_at is not None:
-        raise ValueError(FABRIC_NOT_PORTED)
+    returns the same numbers.  ``--shards > 0`` is :func:`run_fabric`'s."""
+    if args.shards > 0:
+        raise ValueError("--shards > 0 is fabric mode: run_fabric(args) "
+                         "serves it (main() dispatches by --shards)")
     if args.tier is None:
         args.tier = "q8"               # quantized single-node default
     if args.health_out and args.health_every <= 0:
@@ -568,7 +706,34 @@ operator runbook — drills:
   --rebuild           two thirds through, index 0 is rebuilt on a
                       reseeded corpus and swapped in; in-flight batches
                       finish on the old epoch, which then retires
-  --shards S          the sharded fabric is not ported: S > 0 raises
+
+operator runbook — sharded fabric mode (--shards > 0):
+
+  Serve one index behind the sharded, replicated fabric instead of the
+  single-node pipeline.  The planner (centroid scan + LLSP) and the
+  cross-shard merge run on the device; each shard is a worker thread that
+  scans its clusters in numpy on the host.  Probed clusters fan out to
+  owner shards by power-of-two-choices over live replicas; shard death is
+  detected by dead-letter replies or missed heartbeats, failover reroutes
+  probes to replicas, stragglers are hedged, and clusters with no live
+  replica degrade the touching responses to status="partial", never a
+  dropped query.  Fabric mode serves f32 (an explicit --tier q8 is
+  refused), and --rebuild and --fail-shard belong to the single-node mode.
+
+  --shards S          number of shards (worker threads)
+  --replicas R        copies per cluster (default 2): R=2 survives any
+                      single shard death with zero loss; R=1 degrades to
+                      partial
+  --kill-shard-at T   at T seconds a seeded FaultInjector kills one live
+                      shard (0 = no drill); the [fault] lines show the
+                      failover, the [health] line the recall through the
+                      engine
+
+  drills:
+    # zero-drop kill drill: 8 shards, R=2, a shard dies mid-trace
+    serve --shards 8 --replicas 2 --kill-shard-at 4 --duration 8
+    # the same unreplicated: partial responses, not drops
+    serve --shards 8 --replicas 1 --kill-shard-at 4 --duration 8
 
 operator runbook — observability:
 
@@ -616,7 +781,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "plain versions)")
     ap.add_argument("--tier", choices=("q8", "f32"), default=None,
                     help="first-pass posting payload: int8-residual hot "
-                         "tier + flash f32 re-rank (default) or f32")
+                         "tier + flash f32 re-rank (single-node default) "
+                         "or f32. Fabric mode (--shards > 0) serves f32 "
+                         "and REJECTS an explicit q8")
     ap.add_argument("--no-rerank", action="store_true",
                     help="q8 tier only: skip the flash-tier exact re-rank "
                          "and serve raw quantized distances")
@@ -626,13 +793,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stop re-ranking after this many consecutive "
                          "rounds leave the top-k unchanged")
     ap.add_argument("--shards", type=int, default=0,
-                    help="sharded fabric (not ported: > 0 raises)")
-    ap.add_argument("--replicas", type=int, default=None,
-                    help="fabric mode: replicas per cluster (not ported: "
-                         "setting it raises)")
-    ap.add_argument("--kill-shard-at", type=float, default=None,
-                    help="fabric mode: live kill drill (not ported: setting "
-                         "it raises)")
+                    help="serve through the sharded fabric with this many "
+                         "shards (0 = single-node pipeline; see runbook "
+                         "below)")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="fabric mode: replicas per cluster (R>=2 for "
+                         "zero-loss failover)")
+    ap.add_argument("--kill-shard-at", type=float, default=0.0,
+                    help="fabric mode: kill a seeded-random live shard at "
+                         "this many seconds into the trace (0 = no drill)")
     ap.add_argument("--trace-out", type=str, default="",
                     help="write a Chrome/Perfetto trace_event JSON here at "
                          "exit (enables tracing)")
@@ -660,7 +829,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.shards > 0:
+        if args.rebuild:
+            ap.error("--rebuild needs the single-node pipeline; the fabric "
+                     "has no epoch-swap path yet (drop --shards)")
+        if args.fail_shard >= 0:
+            ap.error("--fail-shard is the single-node heartbeat simulation; "
+                     "in fabric mode use --kill-shard-at for a live kill")
+        return run_fabric(args)
     return run_single_node(args)
 
 

@@ -145,9 +145,17 @@ class RerankConfig:
     """FusionANNS-style adaptive re-rank over the flash tier: candidates
     (ascending by q8 distance) are exact-scored in rounds of
     ``round_size``; once the batch's exact top-k survives ``stable_rounds``
-    rounds unchanged the walk stops."""
+    rounds unchanged the walk stops.  ``max_rounds`` caps the walk (0 =
+    only the candidate width bounds it).
+
+    ``auto_round`` derives the NEXT batch's round width from the stamped
+    per-slot flash I/O cost (EWMA over ``rerank_io_s``), so one round's
+    read burst targets a quarter of the measured scan window.  Off by
+    default: with it off the configured ``round_size`` is used verbatim."""
     round_size: int = 64
     stable_rounds: int = 1
+    max_rounds: int = 0
+    auto_round: bool = False
 
 
 def max_id_replicas(posting_ids) -> int:
@@ -255,8 +263,10 @@ class PrefetchPipeline:
     batch captures one snapshot at dispatch and merges the delta buffer and
     tombstones into its candidates, and the scan over-fetches (n_cand-wide
     candidates instead of k) so tombstoned slots cannot starve the final
-    top-k.  Runs on ``device`` (the CUDA card by default; ``"cpu"`` runs the
-    plain versions)."""
+    top-k.  ``quality_proxy`` stamps each re-ranked batch's per-query
+    rerank-agreement recall proxy on ``BatchResult.quality``.  Runs on
+    ``device`` (the CUDA card by default; ``"cpu"`` runs the plain
+    versions)."""
 
     def __init__(self, index: IVFIndex, llsp_params, cfg: SearchConfig,
                  tier: Optional[Union[QuantizedTieredPostings,
@@ -266,6 +276,7 @@ class PrefetchPipeline:
                  fresh_source=None,
                  flash: Optional[FlashTier] = None,
                  rerank: Optional[RerankConfig] = None,
+                 quality_proxy: bool = True,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.fresh_source = fresh_source
@@ -293,6 +304,11 @@ class PrefetchPipeline:
             if flash is not None else None)
         self._scan_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self.quality_proxy = bool(quality_proxy)
+        # auto_round state (RerankConfig.auto_round): EWMA of the measured
+        # per-slot flash read cost and the round width derived from it
+        self._io_per_slot: Optional[float] = None
+        self._auto_round: Optional[int] = None
 
     def close(self) -> None:
         """Stop the worker threads (idempotent)."""
@@ -399,8 +415,8 @@ class PrefetchPipeline:
         t.plan_end = time.perf_counter()
         return _Plan(qd, cids, pmask, nprobe, t, q, ready)
 
-    def _gather(self, plan: _Plan):
-        fetched = self.tier.fetch(plan.cids, plan.pmask,
+    def _gather(self, plan: _Plan, pad_rows: Optional[int] = None):
+        fetched = self.tier.fetch(plan.cids, plan.pmask, pad_rows=pad_rows,
                                   bucket=self.row_bucket)
         ev = self.tier.stats.events[-1]    # same thread as the fetch: safe
         t = plan.times
@@ -503,10 +519,12 @@ class PrefetchPipeline:
         infl.times.scan_done = time.perf_counter()
         quality = None
         if self.flash is not None and infl.size > 0:
-            pre_top = ids[:, : self.cfg.k].copy()
+            pre_top = ids[:, : self.cfg.k].copy() if self.quality_proxy \
+                else None
             dists, ids = self._rerank(
                 infl.queries_host[: infl.size], dists, ids, infl.times)
-            quality = recall_proxy(pre_top, ids, self.cfg.k)
+            if pre_top is not None:
+                quality = recall_proxy(pre_top, ids, self.cfg.k)
         else:
             ids, dists = ids.copy(), dists.copy()
         return BatchResult(ids, dists, infl.nprobe[: infl.size].copy(),
@@ -526,12 +544,16 @@ class PrefetchPipeline:
         ``stable_rounds`` rounds unchanged."""
         rc = self.rerank
         k = self.cfg.k
-        n = cand_i.shape[1]
+        b, n = cand_i.shape
         t.rerank_start = time.perf_counter()
         exact = np.array(cand_d, np.float32, copy=True)
         step = max(int(rc.round_size), 1)
+        if rc.auto_round and self._auto_round is not None:
+            step = self._auto_round
         t.rerank_round_size = step
         n_rounds = -(-n // step)
+        if rc.max_rounds > 0:
+            n_rounds = min(n_rounds, int(rc.max_rounds))
         futs: dict[int, object] = {}
 
         # only ids inside the flash tier are read: a fresh-delta id (past
@@ -590,20 +612,44 @@ class PrefetchPipeline:
         t.rerank_rounds = rounds
         t.rerank_cands = int(hi)
         t.rerank_end = time.perf_counter()
+        if rc.auto_round and hi > 0 and t.rerank_io_s > 0.0:
+            # learn the per-slot flash read cost from this batch's stamps
+            # and retarget the NEXT batch's round width so one round's read
+            # burst is ~1/4 of the measured scan window
+            per_slot = t.rerank_io_s / float(b * hi)
+            self._io_per_slot = per_slot if self._io_per_slot is None \
+                else 0.7 * self._io_per_slot + 0.3 * per_slot
+            scan_win = max(t.scan_done - t.scan_dispatch, 1e-5)
+            want = (scan_win / 4.0) / max(self._io_per_slot * b, 1e-12)
+            self._auto_round = int(np.clip(want, 16, max(n, 16)))
         return out_d, out_i
 
-    def warmup(self, batch_sizes=(16, 32)) -> int:
+    def warmup(self, batch_sizes=(16, 32), max_rows: Optional[int] = None
+               ) -> int:
         """Build the kernel library and run one plan + scan per padded batch
         size (with a fresh view attached, the freshness merge too), so
         traffic never pays the first-use costs (kernel build, allocator
-        growth, pinned-buffer pool).  Returns the number of warm
-        batches."""
+        growth, pinned-buffer pool).  ``max_rows`` (streamed tiers) adds
+        one scan a size over a packed union padded to ``max_rows`` rows
+        (rounded up to ``row_bucket``), so the pinned and device allocators
+        already hold blocks that large when a wide union arrives.  Returns
+        the number of warm batches."""
         first = self.index.centroids[:1].cpu().numpy()
+        rows = None
+        if max_rows is not None and self.streamed:
+            rows = -(-int(max_rows) // self.row_bucket) * self.row_bucket
         n = 0
         for b in batch_sizes:
             bp = -(-b // self.pad_batch) * self.pad_batch
-            self.serve_batch(np.repeat(first, bp, axis=0), self.cfg.k)
+            q = np.repeat(first, bp, axis=0)
+            self.serve_batch(q, self.cfg.k)
             n += 1
+            if rows is not None:
+                plan = self.plan(q, self.cfg.k)
+                prep = _Prep(plan, self._gatherer.submit(self._gather, plan,
+                                                         rows))
+                self.harvest(self.dispatch(prep))
+                n += 1
         return n
 
     # -- convenience drivers ----------------------------------------------

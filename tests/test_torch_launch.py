@@ -1,7 +1,8 @@
 """The port's single-node serving launcher on the CPU at a tiny size:
 ``run_single_node`` deploys, serves an open-loop trace through the engine
 with the shard-failure drill and the mid-run rebuild + epoch swap, and
-drops nothing; the sharded fabric is refused by name."""
+drops nothing; ``run_fabric`` serves the fabric's kill drill and drops
+nothing; fabric mode refuses what the reference refuses."""
 import json
 
 import pytest
@@ -60,14 +61,63 @@ def test_run_single_node_f32_tier_without_quality(capsys):
     assert "tier=f32" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [("--shards", "1"), ("--replicas", "2"),
-                                  ("--kill-shard-at", "1.5")])
-def test_fabric_mode_raises_by_name(flag):
-    from repro_torch.launch.serve import FABRIC_NOT_PORTED, run_single_node
+@pytest.mark.parametrize("argv,raises,match", [
+    (("--shards", "2", "--tier", "q8"), ValueError, "--tier q8"),
+    (("--shards", "2", "--rebuild"), SystemExit, None),
+    (("--shards", "2", "--fail-shard", "1"), SystemExit, None)])
+def test_fabric_mode_refuses_what_the_reference_refuses(argv, raises, match,
+                                                       capsys):
+    """The reference's three fabric-mode refusals: an explicit --tier q8
+    (ValueError, FABRIC_TIER_ERROR), --rebuild and --fail-shard (argparse
+    errors) with --shards > 0."""
+    from repro_torch.launch.serve import FABRIC_TIER_ERROR, main
 
-    with pytest.raises(ValueError, match="fabric"):
-        run_single_node(_args(*flag))
-    assert "not have yet" in FABRIC_NOT_PORTED
+    argv = ["--device", "cpu", "--n", "500", "--duration", "1", *argv]
+    with pytest.raises(raises, match=match):
+        main(argv)
+    if raises is SystemExit:
+        err = capsys.readouterr().err
+        assert "--rebuild" in err or "--fail-shard" in err
+    else:
+        assert "fabric" in FABRIC_TIER_ERROR
+
+
+def test_run_fabric_kill_drill_drops_nothing(capsys, monkeypatch):
+    """``--shards 4 --replicas 2 --kill-shard-at`` on the CPU at a tiny
+    size: the seeded kill fires, one failover with nothing lost, the dead
+    shard's epoch retires, every admitted request completes with none
+    partial or failed, and the fabric never timed out.  The fabric is
+    built with hedging off and a shard declared dead after 25 silent
+    heartbeat ticks (not 3): a batch holding a task on the victim then
+    waits for the failover, which must come, and a healthy worker starved
+    of the GIL on a loaded runner is not taken for a second victim."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_parser, run_fabric
+
+    fabric = serve.ShardedFabric
+    monkeypatch.setattr(serve, "ShardedFabric", lambda *a, **kw: fabric(
+        *a, **{**kw, "hedge_after_s": 30.0, "miss_threshold": 25}))
+
+    args = build_parser().parse_args(
+        ["--device", "cpu", "--shards", "4", "--n", "2000", "--duration",
+         "1.5", "--kill-shard-at", "0.5", "--rate", "60"])
+    assert args.replicas == 2
+    out = run_fabric(args)
+    text = capsys.readouterr().out
+    assert out["device"] == "cpu" and out["arrivals"] > 0
+    assert out["dropped"] == 0 and out["rejected"] == 0
+    assert out["submitted"] == out["arrivals"] + 64    # + the recall probes
+    assert out["partial"] == out["failed"] == out["shed"] == 0
+    assert len(out["kills"]) == 1 and out["kills"][0][0] == "kill"
+    victim = out["kills"][0][1]
+    assert [f["shard"] for f in out["failovers"]] == [victim]
+    assert out["failovers"][0]["lost"] == 0
+    assert out["retired"] == [victim]
+    assert out["timeouts"] == 0 and out["partial_queries"] == 0
+    assert out["recall"] >= 0.9
+    for line in ("[fabric] 4 shards x R=2", "[fault] shard", "[health]",
+                 "busy_s per shard"):
+        assert line in text
 
 
 def test_serve_entry_point_needs_a_card_unless_asked_for_the_cpu(

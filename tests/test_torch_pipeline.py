@@ -303,3 +303,151 @@ def test_entry_points_raise_without_a_card(monkeypatch, small_corpus,
     with pytest.raises(RuntimeError, match="CUDA is absent"):
         build_index(x[:200], BuildConfig(**GATE_CFG), str(tmp_path),
                     device="cuda")
+
+
+# -------------------------------------------------------------------------
+# the reference's pipeline switches: auto_round, max_rounds, quality_proxy,
+# warmup(max_rows=)
+# -------------------------------------------------------------------------
+def _switch_pipes(small_index, x, tmp_path, tag, rerank, **kw):
+    """The port's and the JAX package's q8 pipelines with the flash re-rank
+    over one index, at the reference test's config (pruning "none",
+    plain scans)."""
+    from repro.core.search import SearchConfig as JCfg
+    from repro.runtime import make_quantized_pipeline as j_make
+    from repro.runtime import RerankConfig as JRerank
+    from repro_torch.runtime import RerankConfig
+    from repro_torch.runtime.pipeline import make_quantized_pipeline
+
+    cfg = dict(k=10, nprobe_max=16, pruning="none", use_kernel=False,
+               fused_topk=True)
+    jp = j_make(small_index, None, JCfg(**cfg), vectors=x, name=f"j{tag}",
+                flash_path=str(tmp_path / f"j{tag}.f32"),
+                rerank=JRerank(**rerank), **kw)
+    tindex = convert.ivf_index(np.asarray(small_index.centroids),
+                               np.asarray(small_index.postings),
+                               np.asarray(small_index.posting_ids),
+                               device="cpu")
+    tp = make_quantized_pipeline(tindex, None, SearchConfig(**cfg),
+                                 vectors=x, name=f"t{tag}",
+                                 flash_path=str(tmp_path / f"t{tag}.f32"),
+                                 rerank=RerankConfig(**rerank), device="cpu",
+                                 **kw)
+    return jp, tp
+
+
+def _one(pipe, batch, k=10):
+    return pipe.harvest(pipe.dispatch(pipe.prefetch(pipe.plan(batch, k))))
+
+
+def test_auto_round_first_batch_parity_and_adaptation(small_index,
+                                                      small_corpus,
+                                                      tmp_path):
+    """The reference's auto-round test on the port, beside the reference:
+    before any I/O stamp the auto width is the configured one (results
+    bit-equal to the static config, and equal to the reference's up to
+    ties); the stamped cost then retargets the next batch's width; off
+    never adapts."""
+    x, q, _ = small_corpus
+    b = q[:16].astype(np.float32)
+    j_off, off = _switch_pipes(small_index, x, tmp_path, "off",
+                               dict(round_size=8, auto_round=False))
+    j_on, on = _switch_pipes(small_index, x, tmp_path, "on",
+                             dict(round_size=8, auto_round=True))
+    try:
+        r_off, r_on = _one(off, b), _one(on, b)
+        assert r_on.times.rerank_round_size == 8 == \
+            r_off.times.rerank_round_size
+        np.testing.assert_array_equal(r_off.ids, r_on.ids)
+        np.testing.assert_array_equal(r_off.dists, r_on.dists)
+        w_on = _one(j_on, b)
+        assert w_on.times.rerank_round_size == 8
+        assert_candidates_match(r_on.dists, r_on.ids, w_on.dists, w_on.ids,
+                                tol=1e-4)
+        learned = on._auto_round
+        assert learned is not None and learned >= 16
+        assert j_on._auto_round is not None and j_on._auto_round >= 16
+        assert off._auto_round is None and j_off._auto_round is None
+        r2 = _one(on, b)
+        assert r2.times.rerank_round_size == learned != 8
+        assert _one(off, b).times.rerank_round_size == 8
+    finally:
+        for p in (off, on, j_off, j_on):
+            p.flash.release()
+        off.close()
+        on.close()
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2])
+def test_max_rounds_caps_the_rerank_walk(small_index, small_corpus, tmp_path,
+                                         max_rounds):
+    """``max_rounds`` stops the walk after that many rounds in both
+    packages, with the same candidates re-ranked (ids equal up to ties)."""
+    x, q, _ = small_corpus
+    b = q[:16].astype(np.float32)
+    jp, tp = _switch_pipes(small_index, x, tmp_path, f"m{max_rounds}",
+                           dict(round_size=8, stable_rounds=4,
+                                max_rounds=max_rounds))
+    try:
+        got, want = _one(tp, b), _one(jp, b)
+    finally:
+        tp.close()
+        tp.flash.release()
+        jp.flash.release()
+    assert got.times.rerank_rounds == want.times.rerank_rounds == max_rounds
+    # the final top-k reads at least k columns (here 10 > one round's 8)
+    assert got.times.rerank_cands == want.times.rerank_cands \
+        == max(8 * max_rounds, 10)
+    assert_candidates_match(got.dists, got.ids, want.dists, want.ids,
+                            tol=1e-4)
+
+
+@pytest.mark.parametrize("proxy", [True, False])
+def test_quality_proxy_switch_matches_the_reference(small_index,
+                                                    small_corpus, tmp_path,
+                                                    proxy):
+    """``quality_proxy=False`` drops the per-query proxy and nothing else;
+    on, the port's proxy equals the reference's wherever the ids agree."""
+    x, q, _ = small_corpus
+    b = q[:16].astype(np.float32)
+    jp, tp = _switch_pipes(small_index, x, tmp_path, f"p{proxy}",
+                           dict(round_size=64), quality_proxy=proxy)
+    try:
+        got, want = _one(tp, b), _one(jp, b)
+    finally:
+        tp.close()
+        tp.flash.release()
+        jp.flash.release()
+    assert (got.quality is None) == (want.quality is None) == (not proxy)
+    assert_candidates_match(got.dists, got.ids, want.dists, want.ids,
+                            tol=1e-4)
+    if proxy:
+        same = (got.ids == want.ids).all(axis=1)
+        np.testing.assert_array_equal(got.quality[same],
+                                      np.asarray(want.quality)[same])
+
+
+def test_warmup_max_rows_pads_the_union_and_changes_nothing(
+        small_index, small_corpus, tmp_path):
+    """``warmup(max_rows=)`` adds one scan a batch size over a union padded
+    to max_rows (rounded to row_bucket); the reference accepts the same
+    switch; None is the plain warmup; results afterwards are the same."""
+    x, q, _ = small_corpus
+    b = q[:16].astype(np.float32)
+    jp, tp = _switch_pipes(small_index, x, tmp_path, "w",
+                           dict(round_size=64), row_bucket=32)
+    try:
+        assert jp.warmup(batch_sizes=(16,), max_rows=64) >= 1
+        before = _one(tp, b)
+        assert tp.warmup(batch_sizes=(16,)) == 1
+        assert tp.warmup(batch_sizes=(16, 32), max_rows=70) == 4
+        rows = [ev.rows for ev in tp.tier.stats.events[-4:]]
+        assert rows[1] == rows[3] == 96          # 70 rounded up to 32s
+        assert max(rows[0], rows[2]) < 96
+        after = _one(tp, b)
+    finally:
+        tp.close()
+        tp.flash.release()
+        jp.flash.release()
+    np.testing.assert_array_equal(before.ids, after.ids)
+    np.testing.assert_array_equal(before.dists, after.dists)

@@ -38,10 +38,14 @@ script's, so every tree is read with the same yardstick:
   (B 256, P 16, C 8192) on seeded inputs;
 - the 1M build of the tree's own phase 3 and its ``index_content_hash``,
   beside the unfused and the fused 100k builds' stage seconds and hashes;
+- phase 4 of the tree (the q8 streamed pipeline over 64 batches of 32:
+  QPS, batch p50/p99, recall);
 - run (a) of the tree's phase 11 (engine, quality stack on, one 6 s
   open-loop trace) at the fixed offered rate ``--rate`` in q/s, in place of
   a quarter of phase 4's QPS, and the 256 recall probes after it.
 
+``--serve-only`` skips the kernel times and the 100k builds: each tree
+then runs its 1M build, phase 4 and run (a) alone (about 40 s a tree).
 Prints one JSON object a tree, on a line starting ``AB``, and writes them
 all to ``--out`` as a JSON list.  Needs one card.
 """
@@ -219,7 +223,7 @@ def resident_scan_times(cs, ys, built) -> dict:
     return out
 
 
-def run_one(tree: str, rate: float) -> dict:
+def run_one(tree: str, rate: float, serve_only: bool = False) -> dict:
     tree = os.path.abspath(tree)
     ys = _yardstick()
     time_two_ways = ys.time_two_ways
@@ -239,16 +243,24 @@ def run_one(tree: str, rate: float) -> dict:
                          f"{tree}'s")
     card = cs.phase_device()["card"]
     cuda_lib.build_info()
-    out = {"tree": tree, "card": card,
-           "kernels": kernel_times(cs, time_two_ways)}
-    out["kernels"]["pairwise_l2"] = b5_times(ys)
-    out["kernels"].update(k3_times(ys))
+    out = {"tree": tree, "card": card, "kernels": {}}
     work = tempfile.mkdtemp(prefix="chip_ab_")
-    out["unfused_100k"] = unfused_builds(cs, ys, work)
+    if not serve_only:
+        out["kernels"] = kernel_times(cs, time_two_ways)
+        out["kernels"]["pairwise_l2"] = b5_times(ys)
+        out["kernels"].update(k3_times(ys))
+        out["unfused_100k"] = unfused_builds(cs, ys, work)
     built = cs.phase_build(work)
     out["build_s"] = built["build_s"]
     out["index_content_hash"] = index_content_hash(built["index"])[:16]
-    out["kernels"].update(resident_scan_times(cs, ys, built))
+    if not serve_only:
+        out["kernels"].update(resident_scan_times(cs, ys, built))
+    # phase 4: the q8 streamed pipeline, closed loop (QPS, batch latency)
+    served = cs.phase_serve(work, built)
+    out["phase4"] = {k: served[k] for k in ("qps", "p50_ms", "p99_ms",
+                                            "recall10", "probe_ceiling")}
+    served["pipe"].close()
+    served["pipe"].flash.release()
     # run (a) alone, offered ``rate`` q/s: phase_engine offers 0.25x the
     # "QPS" it is handed
     cs.ENGINE_RUNS = tuple(r for r in cs.ENGINE_RUNS if r[0] == "a")
@@ -267,10 +279,13 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--rate", type=float, default=869.3)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--serve-only", action="store_true",
+                    help="only the build, phase 4 and the engine run (a)")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        print("AB " + json.dumps(run_one(a.one, a.rate)), flush=True)
+        print("AB " + json.dumps(run_one(a.one, a.rate, a.serve_only)),
+              flush=True)
         return 0
     if not a.tree:
         ap.error("give at least one --tree")
@@ -278,7 +293,8 @@ def main() -> int:
     for tree in a.tree:
         t0 = time.perf_counter()
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree, "--rate", str(a.rate)],
+                            "--one", tree, "--rate", str(a.rate)]
+                           + ["--serve-only"] * a.serve_only,
                            capture_output=True, text=True)
         sys.stderr.write(p.stderr[-4000:])
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
