@@ -317,3 +317,59 @@ def enforce_size_bound(
         if new_rows:
             cents = np.concatenate([cents, np.stack(new_rows)], axis=0)
     return cents
+
+
+# --------------------------------------------------------------------------
+# one distributed Lloyd step (the stage-1 build cell of the reference's
+# dry runs)
+# --------------------------------------------------------------------------
+ONE_HOT_ROWS = 65536        # rows a chunk of the unfused step's one-hot
+
+
+def _one_hot_sums(x: torch.Tensor, cents: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's inline unfused pass: squared_l2, argmin, one-hot
+    and the one-hot product, over chunks of ``ONE_HOT_ROWS`` rows so the
+    (rows, K) tiles stay bounded.  Counts are f32, as the reference's."""
+    from repro_torch.core.distance import squared_l2
+
+    k = cents.shape[0]
+    sums = torch.zeros_like(cents, dtype=torch.float32)
+    counts = torch.zeros((k,), dtype=torch.float32, device=cents.device)
+    for s in range(0, x.shape[0], ONE_HOT_ROWS):
+        xs = x[s:s + ONE_HOT_ROWS]
+        a = torch.argmin(squared_l2(xs, cents), dim=1)
+        oh = torch.nn.functional.one_hot(a, k).to(torch.float32)
+        sums += oh.T @ xs
+        counts += torch.sum(oh, dim=0)
+    return sums, counts
+
+
+def kmeans_sharded_sums(mesh, x_local: torch.Tensor, cents: torch.Tensor,
+                        fused: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-centroid (sums (K, D), counts (K,)) of every rank's rows: this
+    rank's pass (K2 when ``fused``, else the inline one-hot), all-reduced
+    over every mesh axis but ``model``."""
+    from repro_torch.distributed.collectives import all_reduce
+
+    if fused:
+        _, _, sums, counts = kops.kmeans_assign_update(x_local, cents)
+    else:
+        sums, counts = _one_hot_sums(x_local, cents)
+    for axis in (a for a in mesh.axis_names if a != "model"):
+        sums = all_reduce(sums, mesh.group(axis))
+        counts = all_reduce(counts, mesh.group(axis))
+    return sums, counts
+
+
+def kmeans_sharded_step(mesh, x_local: torch.Tensor, cents: torch.Tensor,
+                        k: int, fused: bool = True) -> torch.Tensor:
+    """One distributed Lloyd iteration: ``x_local`` is this rank's block of
+    rows (split over the data axes), ``cents`` (K, D) replicated; every
+    rank returns the same new centroids, ``where(counts > 0, sums /
+    max(counts, 1), cents)`` (plain torch, as the reference's jnp M-step).
+    ``k`` is the reference's unused argument."""
+    sums, counts = kmeans_sharded_sums(mesh, x_local, cents, fused)
+    c = counts.to(torch.float32)[:, None]
+    return torch.where(c > 0, sums / torch.clamp_min(c, 1.0), cents)

@@ -13,7 +13,13 @@ Per query batch:
 
 ``serve_step`` runs the whole batch at ``nprobe_max``; ``serve_leveled``
 routes on the host and scans each level's bucket at that level's bound.
-The sharded engines come in a later slice.
+
+The sharded engines (``make_sharded_serve``,
+``make_sharded_serve_quantized``) stripe clusters over the ``model`` mesh
+axis and split queries over the data axes (``launch/mesh.py``); each rank
+scans its own clusters and the per-shard top-k are merged with one
+all-gather of k candidates, the multi-SSD array and front-end merge of the
+paper's Fig. 2a.
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ class SearchConfig:
     tier: str = "f32"             # first-pass payload: "f32" scans
                                   # index.postings, "q8" the attached int8
                                   # residuals (quantize.attach_quantized)
+    shard_centroids: bool = False # sharded engine: each shard scans its
+                                  # C/S centroid slice, then one (B, nmax)
+                                  # all-gather and a re-rank
 
 
 def _auto_ncand(k: int) -> int:
@@ -221,3 +230,125 @@ def serve_leveled(index: IVFIndex, llsp_params: llsp_mod.LLSPParams,
         out_i[sel] = res["ids"].cpu().numpy()[: sel.size]
         out_np[sel] = res["nprobe"].cpu().numpy()[: sel.size]
     return {"ids": out_i, "dists": out_d, "nprobe": out_np, "levels": lv}
+
+
+# --------------------------------------------------------------------------
+# sharded engines: clusters striped over `model`, queries over data axes
+# --------------------------------------------------------------------------
+def _sharded_centroid_scan(queries, centroids_l, nmax: int, shard: int,
+                           group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each shard ranks its C/S centroid slice; one (S, B, k_loc)
+    all-gather (in axis order) and a re-rank give the global top-nmax."""
+    from repro_torch.distributed.collectives import all_gather
+
+    c_slice = centroids_l.shape[0]
+    dv, di = topk_smallest(squared_l2(queries, centroids_l),
+                           min(nmax, c_slice))
+    di = di + shard * c_slice                     # global centroid ids
+    b = queries.shape[0]
+    dv_all = torch.stack(all_gather(dv, group), dim=1).reshape(b, -1)
+    di_all = torch.stack(all_gather(di, group), dim=1).reshape(b, -1)
+    cdists, pos = topk_smallest(dv_all, nmax)
+    return cdists, torch.gather(di_all, 1, pos)
+
+
+def _sharded_local_search(mesh, cfg: SearchConfig, shard_axis: str):
+    """This rank's search of its query block over its cluster stripe,
+    merged across the ``shard_axis`` shards: a function of (the local
+    IVFIndex, whose centroids are replicated or this shard's slice, LLSP
+    params, queries, topk_req) -> this rank's rows of (dists, ids,
+    nprobe)."""
+    from repro_torch.distributed.collectives import all_gather
+
+    n_shards = mesh.size(shard_axis)
+    shard = mesh.index(shard_axis)
+    group = mesh.group(shard_axis)
+
+    def search(local_index, llsp_params, queries, topk_req):
+        centroids = local_index.centroids
+        c_local = local_index.posting_ids.shape[0]
+        lo = shard * c_local
+        nmax = cfg.nprobe_max
+        if cfg.shard_centroids:
+            cdists, cids = _sharded_centroid_scan(queries, centroids, nmax,
+                                                  shard, group)
+        else:
+            cdists, cids = topk_smallest(squared_l2(queries, centroids),
+                                         nmax)
+        nprobe = decide_nprobe(cfg, llsp_params, queries, topk_req, cdists)
+        probe_mask = (torch.arange(nmax, device=queries.device)[None, :]
+                      < nprobe[:, None])
+        # restrict to the clusters striped on this shard
+        local_cids = cids - lo
+        probe_mask = probe_mask & (local_cids >= 0) & (local_cids < c_local)
+        local_cids = torch.clamp(local_cids, 0, c_local - 1).to(torch.int32)
+        dists_k, ids_k = _scan_and_rank(local_index, queries, local_cids,
+                                        probe_mask, cfg)
+        # merge across shards: each shard's k candidates, re-ranked
+        b = queries.shape[0]
+        all_d = torch.stack(all_gather(dists_k, group), dim=1)
+        all_i = torch.stack(all_gather(ids_k, group), dim=1)
+        fd, fi = merge_candidate_topk(all_d.reshape(b, n_shards * cfg.k),
+                                      all_i.reshape(b, n_shards * cfg.k),
+                                      cfg.k)
+        return fd, fi, nprobe
+
+    return search
+
+
+def make_sharded_serve(mesh, cfg: SearchConfig, *,
+                       batch_axes: tuple = ("data",),
+                       shard_axis: str = "model"):
+    """The sharded engine over f32 postings, for this rank of ``mesh``.
+
+    Returns ``local_search(centroids, postings, posting_ids, llsp_params,
+    queries, topk_req)``, which takes this rank's blocks (its
+    ``in_specs``: centroids replicated, or this shard's slice with
+    ``cfg.shard_centroids``; postings and ids striped on the cluster dim
+    over ``shard_axis``; LLSP replicated; queries and topk over
+    ``batch_axes``) and returns this rank's rows of ``(dists, ids,
+    nprobe)`` (its ``out_specs``).  Every rank of the mesh calls it once a
+    batch: the all-gathers are collective."""
+    from repro_torch.distributed.sharding import P
+
+    search = _sharded_local_search(mesh, cfg, shard_axis)
+
+    def local_search(centroids, postings, posting_ids, llsp_params, queries,
+                     topk_req):
+        return search(IVFIndex(centroids, postings, posting_ids),
+                      llsp_params, queries, topk_req)
+
+    bspec = P(tuple(batch_axes))
+    cent = P(shard_axis) if cfg.shard_centroids else P()
+    local_search.in_specs = (cent, P(shard_axis), P(shard_axis), P(),
+                             bspec, bspec)
+    local_search.out_specs = (bspec, bspec, bspec)
+    return local_search
+
+
+def make_sharded_serve_quantized(mesh, cfg: SearchConfig, *,
+                                 batch_axes: tuple = ("data",),
+                                 shard_axis: str = "model"):
+    """The sharded engine over int8 residual postings (core/quantize.py):
+    ``local_search(centroids_l, q8, scale, norm2, posting_ids,
+    llsp_params, queries, topk_req)``, every array but the LLSP params, the
+    queries and topk striped on the cluster dim.  The centroid scan is
+    sharded as with ``shard_centroids``, and the scan reads each cluster's
+    own centroid from the local slice for the residual."""
+    from repro_torch.distributed.sharding import P
+
+    search = _sharded_local_search(
+        mesh, dataclasses.replace(cfg, tier="q8", shard_centroids=True),
+        shard_axis)
+
+    def local_search(centroids_l, q8, scale, norm2, posting_ids,
+                     llsp_params, queries, topk_req):
+        return search(IVFIndex(centroids_l, None, posting_ids, q8=q8,
+                               qscale=scale, qnorm2=norm2),
+                      llsp_params, queries, topk_req)
+
+    bspec = P(tuple(batch_axes))
+    s = P(shard_axis)
+    local_search.in_specs = (s, s, s, s, s, P(), bspec, bspec)
+    local_search.out_specs = (bspec, bspec, bspec)
+    return local_search

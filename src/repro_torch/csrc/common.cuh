@@ -18,6 +18,22 @@ namespace repro {
 
 constexpr int kScanThreads = 1024;
 
+// The dynamic shared memory a kernel may take without opting in: 48 KB
+// less its static shared memory, which counts against the same limit.  A
+// launch asking for more without cudaFuncAttributeMaxDynamicSharedMemorySize
+// fails with cudaErrorInvalidValue.  0 when the attributes cannot be read
+// (the caller then always opts in).
+template <typename Kernel>
+inline size_t default_dynamic_smem(Kernel kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return attr.sharedSizeBytes < 48 * 1024 ? 48 * 1024 - attr.sharedSizeBytes
+                                          : 0;
+}
+
 // Asynchronous copies from device memory into shared memory: 16 bytes (both
 // addresses 16-byte aligned; bypasses L1) or 4 bytes.  Each thread's copies
 // are grouped by commit; wait<N> returns once at most N of its groups are

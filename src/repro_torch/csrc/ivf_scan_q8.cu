@@ -396,7 +396,12 @@ extern "C" int ivf_scan_q8_topk_launch(
   const size_t smem = ivf_scan_q8_topk_smem_bytes(L, D, k2);
   auto kernel =
       k2 <= 32 ? q8_topk_chunk_kernel<true> : q8_topk_chunk_kernel<false>;
-  if (smem > 48 * 1024) {
+  // the plan's static arrays share the 48 KB with the dynamic buffer
+  static const size_t room_reg =
+      repro::default_dynamic_smem(q8_topk_chunk_kernel<true>);
+  static const size_t room_smem =
+      repro::default_dynamic_smem(q8_topk_chunk_kernel<false>);
+  if (smem > (k2 <= 32 ? room_reg : room_smem)) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     REPRO_RETURN_IF_ERROR();

@@ -188,7 +188,9 @@ inline int launch_topk_merge(const float* part_d, const int* part_i,
                              int n_queries, int k2, int n_chunks,
                              cudaStream_t st) {
   const size_t msmem = ((size_t)2 * n_chunks * (k2 | 1) + 2 * k2) * 4;
-  if (msmem > 48 * 1024) {
+  static const size_t room =
+      repro::default_dynamic_smem(f32_topk_merge_kernel);
+  if (msmem > room) {
     cudaFuncSetAttribute(f32_topk_merge_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)msmem);

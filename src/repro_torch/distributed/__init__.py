@@ -1,7 +1,10 @@
-"""Node health, failover planning and the sharded serving fabric (port of
-``repro.distributed``'s ``fault`` and ``fabric``): one logical index over S
-shard workers behind the engine's stage protocol, with replica failover,
-hedging, checksum retries and per-shard epoch retirement."""
+"""Node health, failover planning, the sharded serving fabric, the
+collectives and the sharding rules (port of ``repro.distributed``): one
+logical index over S shard workers behind the engine's stage protocol, with
+replica failover, hedging, checksum retries and per-shard epoch
+retirement; the int8 compressed and bucketed all-reduces over a mesh
+axis's process group; the ANNS partition specs."""
+from .collectives import bucketed_psum, compressed_psum, compressed_psum_tree
 from .fabric import FabricStats, ShardNode, ShardReply, ShardTask, ShardedFabric
 from .fault import (
     FailoverPlan,
@@ -11,3 +14,4 @@ from .fault import (
     ownership_mask,
     plan_failover,
 )
+from . import sharding

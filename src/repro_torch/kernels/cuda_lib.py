@@ -17,8 +17,10 @@ its main path went through.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -154,6 +156,22 @@ def _build(out_dir: Path) -> BuildInfo:
     return BuildInfo(str(final), time.perf_counter() - t0, "\n".join(logs))
 
 
+@contextlib.contextmanager
+def build_lock(out_dir: Path):
+    """An exclusive ``fcntl`` lock on ``<out_dir>/lock``, held across the
+    check for a built library and the build: processes that load the
+    library at once (the ranks of a mesh) build it once, one at a time,
+    and never race on the object files.  The kernel drops the lock when
+    its holder exits, so a killed build leaves none behind."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib, _info
@@ -161,8 +179,9 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             out_dir = BUILD_ROOT / _digest()
             final = out_dir / "librepro_torch_kernels.so"
-            info = (BuildInfo(str(final), 0.0, "") if final.exists()
-                    else _build(out_dir))
+            with build_lock(out_dir):
+                info = (BuildInfo(str(final), 0.0, "") if final.exists()
+                        else _build(out_dir))
             lib = ctypes.CDLL(info.path)
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -187,7 +187,10 @@ def ivf_scan_q8_topk_cuda(q8, scale, norm2, centroids, posting_ids, cids,
         out_i.data_ptr(), part, part + 4 * n_parts * k2,
         part + 8 * n_parts * k2, b, r_count, p, l, d, k2, chunks,
         cuda_lib.stream_handle(dev))
-    cuda_lib.check(rc, "ivf_scan_q8_topk")
+    if rc:
+        cuda_lib.check(rc, f"ivf_scan_q8_topk (B={b} R={r_count} P={p} "
+                           f"L={l} D={d} k2={k2} chunks={chunks} "
+                           f"smem={smem})")
     cuda_lib.LAUNCHES.add("ivf_scan_q8_topk")
     return out_d, out_i
 

@@ -58,10 +58,15 @@ def _k1_special_case(kind):
     "p_limit" gives every query the most probes the kernel takes (256, with
     repeats); "k2_1", "k2_24", "k2_32", "k2_33" and "k2_256" ask for
     candidates in the register buffer (one, some, all its lanes), just
-    above it and at the limit."""
+    above it and at the limit; "online" is serve_online's shape (L 128, D
+    128, P 256, k2 200), where the dynamic buffer alone fits 48 KB and
+    the plan's static arrays push the block over it."""
     if kind == "p_limit":
         return q8_case(300, 16, 32, 5, 256, seed=50, dead=0.1,
                        masked=0.2), 24
+    if kind == "online":
+        return q8_case(300, 128, 128, 6, 256, seed=53, dead=0.05,
+                       masked=0.1), 200
     if kind.startswith("k2_"):
         return q8_case(60, 32, 64, 9, 16, seed=51, dead=0.1,
                        masked=0.1), int(kind[3:])
@@ -77,7 +82,7 @@ def _k1_special_case(kind):
 
 
 K1_KINDS = ["dup_id", "masked", "p_limit", "k2_1", "k2_24", "k2_32",
-            "k2_33", "k2_256"]
+            "k2_33", "k2_256", "online"]
 
 
 @pytest.mark.parametrize("chunks", [1, 3, "P", None])
@@ -1008,3 +1013,111 @@ def test_fresh_merge_on_card_matches_cpu(cuda):
     cd, ci = merge_fresh(*_dev(args, "cpu"), kw)
     torch.cuda.synchronize()
     assert_candidates_match(gd.cpu(), gi.cpu(), cd, ci, tol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the mesh on the card: sharded engines (NCCL, one rank) and the sharded
+# Lloyd step (four gloo ranks sharing the card)
+# --------------------------------------------------------------------------
+def _mesh_index(tmp_path):
+    """A 2,000 x 16 index (clusters padded to a multiple of 4) with its q8
+    payload, written as the mesh jobs read it; returns the arrays."""
+    from repro_torch.build.kmeans import balanced_hierarchical_kmeans
+    from repro_torch.core.ivf import build_postings
+    from repro_torch.core.quantize import quantize_postings
+    from repro_torch.core.spann_rules import closure_assign
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2000, 16)).astype(np.float32)
+    q = rng.normal(size=(64, 16)).astype(np.float32)
+    cents, _ = balanced_hierarchical_kmeans(x, 40, iters=6, device="cpu")
+    ca = closure_assign(torch.from_numpy(x), torch.from_numpy(cents),
+                        eps=0.2).numpy()
+    post, pids = build_postings(x, ca, cents.shape[0], 48)
+    pad = -cents.shape[0] % 4
+    cents = np.concatenate([cents, np.full((pad, 16), 1e6, np.float32)])
+    post = np.concatenate([post, np.zeros((pad, 48, 16), np.float32)])
+    pids = np.concatenate([pids, np.full((pad, 48), -1, np.int32)])
+    qp = quantize_postings(torch.from_numpy(post), torch.from_numpy(cents),
+                           torch.from_numpy(pids))
+    arrays = {"centroids": cents, "postings": post, "posting_ids": pids,
+              "q8": qp.q8.numpy(), "qscale": qp.scale.numpy(),
+              "qnorm2": qp.norm2.numpy(), "queries": q,
+              "topk": np.full(len(q), 10, np.int32)}
+    for name, a in arrays.items():
+        np.save(tmp_path / f"{name}.npy", a)
+    return arrays
+
+
+def test_sharded_engines_on_card_match_serve_step(cuda, tmp_path):
+    """The f32 (B2) and q8 (K1) sharded engines at one NCCL rank on the
+    card give serve_step's ids up to ties and its nprobe, and launch their
+    kernels once a batch."""
+    from repro_torch.core.ivf import IVFIndex
+    from repro_torch.core.quantize import attach_quantized
+    from repro_torch.core.search import SearchConfig, serve_step
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import mesh_jobs
+    from repro_torch.launch.mesh import spawn
+
+    arrays = _mesh_index(tmp_path)
+    cuda_lib.library()                     # built once, before the ranks
+    cfg = dict(k=10, nprobe_max=16, pruning="none")
+    jobs = [{"kind": "serve", "shape": (1, 1), "work": str(tmp_path),
+             "engine": e, "cfg": dict(cfg, shard_centroids=sc), "batch": 32}
+            for e, sc in (("f32", False), ("f32", True), ("q8", False))]
+    res = spawn(mesh_jobs.run, (1,), ("data",), backend="nccl",
+                device="cuda", args=(jobs,), timeout_s=300)[0]
+    index = attach_quantized(IVFIndex(
+        *(torch.from_numpy(arrays[n]).to(cuda)
+          for n in ("centroids", "postings", "posting_ids"))))
+    q = torch.from_numpy(arrays["queries"]).to(cuda)
+    tk = torch.from_numpy(arrays["topk"]).to(cuda)
+    for r, tier, kernel in ((res[0], "f32", "ivf_scan_topk"),
+                            (res[1], "f32", "ivf_scan_topk"),
+                            (res[2], "q8", "ivf_scan_q8_topk")):
+        want = [serve_step(index, None, q[s:s + 32], tk[s:s + 32],
+                           SearchConfig(**cfg, tier=tier)) for s in (0, 32)]
+        np.testing.assert_array_equal(
+            r["nprobe"], torch.cat([w["nprobe"] for w in want]).cpu())
+        assert_candidates_match(
+            r["dists"], r["ids"],
+            torch.cat([w["dists"] for w in want]).cpu(),
+            torch.cat([w["ids"] for w in want]).cpu(),
+            tol=1e-4 if tier == "f32" else 1e-3)
+        assert r["launches"][kernel] == 2
+        assert not r["host_staged"]
+
+
+def test_kmeans_sharded_step_on_card_four_gloo_ranks(cuda, tmp_path):
+    """kmeans_sharded_step at four gloo ranks sharing the card (K2 on each
+    rank's rows, CUDA tensors staged through host memory for gloo) against
+    one K2 over every row and the same M-step: counts exact, centroids
+    within 1e-5."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh_jobs
+    from repro_torch.launch.mesh import spawn
+
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(64, 32))[rng.integers(0, 64, 40_000)]
+         + 0.2 * rng.normal(size=(40_000, 32))).astype(np.float32)
+    cents = x[rng.choice(len(x), 128, replace=False)].copy()
+    np.save(tmp_path / "x.npy", x)
+    np.save(tmp_path / "cents.npy", cents)
+    cuda_lib.library()
+    res = spawn(mesh_jobs.run, (4,), ("data",), backend="gloo",
+                device="cuda", args=([{"kind": "kmeans", "shape": (4, 1),
+                                       "work": str(tmp_path)}],),
+                timeout_s=300)
+    xd, cd = torch.from_numpy(x).to(cuda), torch.from_numpy(cents).to(cuda)
+    _, _, sums, counts = kops.kmeans_assign_update(xd, cd)
+    c = counts.to(torch.float32)[:, None]
+    want = torch.where(c > 0, sums / torch.clamp_min(c, 1.0), cd).cpu()
+    r0 = res[0][0]
+    np.testing.assert_array_equal(r0["counts"], counts.cpu().numpy())
+    np.testing.assert_allclose(r0["centroids"], want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for (r,) in res:
+        assert r["launches"]["kmeans_assign_update"] >= 1
+        assert r["launches"]["kmeans_mstep"] == 0
