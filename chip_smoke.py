@@ -66,7 +66,7 @@ Phases, each of which raises on failure:
    around a run of launches as issued, ``ms``, and the same launches
    queued behind a sleep kernel, ``device_ms``), printed as one JSON line
    with each kernel's launches (summed over every main-path run of phases
-   3-15, the ranks of phase 15 included), times, bound and plain time (K1
+   3-16, the ranks of phase 15 included), times, bound and plain time (K1
    through its wrapper, which launches nothing but its two kernels, B2
    alone on a prebuilt plan beside its wrapper's time, both with their
    block counts and split into their two kernels; K2 at the 1M
@@ -144,7 +144,28 @@ Phases, each of which raises on failure:
     beside it; (d) ``compressed_psum_tree`` and ``bucketed_psum`` on the
     card's tensors over the gloo group (atol 3e-2 and 1e-5); (e)
     ``build_nsw_graph`` on the card over 10,000 corpus rows, recall@10 >
-    0.7 and hops > 10.  Each rank's launch counts join phase 6's column.
+    0.7 and hops > 10; (f) ``embedding_lookup_sharded`` and
+    ``embedding_bag_sharded`` over MIND's full table (4,194,304 x 64, a
+    rank holding 1,048,576 rows) at (1, 4) with the ``train_batch`` history
+    ids (65,536 x 50) against one process's unsharded functions: the
+    lookup bit-equal, the bag within rtol and atol 1e-5.  Each rank's
+    launch counts join phase 6's column;
+16. train (``[train]``): (a) each recsys arch (MIND, DIN, Wide&Deep,
+    xDeepFM) at its published widths and configured table rows, batch
+    65,536 (xDeepFM 8,192, cut: its CIN keeps a (B, 7,800, 10) tensor a
+    layer), 6 steps on one fixed batch (the loss must fall), then 10
+    steps of ``recsys_batch``: ms a step by CUDA events, peak memory, the
+    state's bytes, the losses; MIND's step run twice from one state must
+    give bit-equal params and AdamW state, and the gathers' backward
+    (``F.embedding``, ``index_select``, advanced indexing) is checked for
+    bit-equal repeats; (b) one step of each arch at a 2,048-row table on
+    the card against the CPU (loss rtol 1e-5, params and moments atol
+    1e-5); (c) ``python -m repro_torch.launch.train --arch mind --steps
+    20 --ckpt-every 5``: ``--fail-at 12`` exits non-zero, the relaunch
+    resumes from step 10, and its step-20 checkpoint is byte-equal to an
+    uninterrupted run's; (d) ``examples/train_retrieval_torch.py``'s
+    ``run`` at 8,192 and 1,048,576 items (500 steps each): recall@50
+    equal to the probe ceiling within 1e-6, and K23, K2 and B2 launched.
 
 The last line of standard output is the device JSON; the script exits
 non-zero, printing no result, when there is no CUDA device or when it runs
@@ -3137,6 +3158,8 @@ LLOYD_ROWS = 1 << 20             # rows a rank: 2^24 over 16 data shards
 LLOYD_K = 4096                   # k_coarse of the build_step cell
 LLOYD_RANKS = 4
 GRAPH_N, GRAPH_Q = 10_000, 64
+MIND_ROWS, MIND_DIM, MIND_SEQ = 1 << 22, 64, 50     # (f): MIND's table
+TRAIN_BATCH = 65536              # the recsys train_batch shape
 
 
 def mesh_write(path: str, arrays: dict) -> None:
@@ -3283,6 +3306,17 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
     rng = np.random.default_rng(5)
     tree = {"a": rng.normal(size=(32, 8)).astype(np.float32),
             "b": [rng.normal(size=(64,)).astype(np.float32)]}
+    from repro_torch.data.synthetic import recsys_batch
+
+    t0 = time.perf_counter()
+    mind_table = np.random.default_rng(51).standard_normal(
+        (MIND_ROWS, MIND_DIM), dtype=np.float32)
+    mind_ids = recsys_batch(TRAIN_BATCH, 1, MIND_ROWS, seq_len=MIND_SEQ,
+                            seed=52)["hist_ids"]
+    mesh_write(os.path.join(mw, "f"), {"table": mind_table, "ids": mind_ids})
+    log(f"[mesh] (f) MIND's table {mind_table.shape} and train_batch history "
+        f"ids {mind_ids.shape} drawn and written in "
+        f"{time.perf_counter() - t0:.1f} s")
     jobs = (serve_jobs(pb, (2, 2)) + serve_jobs(pb, (1, MESH_MODEL))
             + [{"kind": "serve", "shape": (1, MESH_MODEL), "work": pb,
                 "engine": "q8", "cfg": dict(ONLINE_CFG, use_kernel=True),
@@ -3293,7 +3327,9 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
                {"kind": "kmeans", "shape": (LLOYD_RANKS, 1), "fused": False,
                 "warm": False, "work": os.path.join(mw, "c")},
                {"kind": "collectives", "shape": (LLOYD_RANKS, 1),
-                "tree": tree, "bucket_bytes": 128}])
+                "tree": tree, "bucket_bytes": 128},
+               {"kind": "recsys", "shape": (1, MESH_MODEL),
+                "work": os.path.join(mw, "f"), "embedding": True}])
     t0 = time.perf_counter()
     res4 = spawn(mesh_jobs.run, (4,), ("data",), backend="gloo",
                  device=DEVICE, args=(jobs,), timeout_s=MESH_TIMEOUT_S)
@@ -3391,19 +3427,21 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
 
     # ---- (d) collectives on the card's tensors over the gloo group ------
     worst = [0.0, 0.0]
-    for ranks in by_job[j + 3:]:
-        for rr in ranks:
-            for g, w in zip(_leaves(rr["compressed"]), _leaves(tree)):
-                np.testing.assert_allclose(g, w, atol=3e-2)
-                worst[0] = max(worst[0], float(np.abs(g - w).max()))
-            for g, w in zip(_leaves(rr["bucketed"]), _leaves(tree)):
-                w = w * (LLOYD_RANKS + 1) / 2
-                np.testing.assert_allclose(g, w, atol=1e-5)
-                worst[1] = max(worst[1], float(np.abs(g - w).max()))
+    for rr in by_job[j + 3]:
+        for g, w in zip(_leaves(rr["compressed"]), _leaves(tree)):
+            np.testing.assert_allclose(g, w, atol=3e-2)
+            worst[0] = max(worst[0], float(np.abs(g - w).max()))
+        for g, w in zip(_leaves(rr["bucketed"]), _leaves(tree)):
+            w = w * (LLOYD_RANKS + 1) / 2
+            np.testing.assert_allclose(g, w, atol=1e-5)
+            worst[1] = max(worst[1], float(np.abs(g - w).max()))
     log(f"[mesh] (d) compressed_psum_tree max_abs_err={worst[0]:.3g} "
         f"(atol 3e-2), bucketed_psum max_abs_err={worst[1]:.3g} (atol "
         f"1e-5) over {LLOYD_RANKS} gloo ranks, staged={staged}")
     out["d"] = {"compressed": worst[0], "bucketed": worst[1]}
+    out["f"] = mesh_recsys(by_job[j + 4], os.path.join(mw, "f"), mind_table,
+                           mind_ids, staged)
+    del mind_table
 
     # ---- (e) the graph baseline's kNN pass on the card ------------------
     from repro_torch.core.graph_baseline import batch_search, \
@@ -3440,6 +3478,46 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[mesh] phase 15 {out['seconds']:.1f} s")
     return out
+
+
+def mesh_recsys(ranks, path: str, table, ids, staged: bool) -> dict:
+    """Phase 15 (f): the four ranks' sharded lookup and bag over MIND's
+    table against one process's unsharded functions on the card: the
+    lookup bit-equal (one rank holds each row, the others add zeros), the
+    bag within rtol 1e-5 and atol 1e-5 (tests/test_multidevice.py part
+    2's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.recsys import embedding_bag, embedding_lookup
+
+    mesh_launches(ranks, "mesh (f) recsys tables (phase 15)")
+    td = torch.from_numpy(table).to(DEVICE)
+    idd = torch.from_numpy(ids).to(DEVICE)
+    with torch.no_grad():
+        want = embedding_lookup(td, idd)
+        got = torch.from_numpy(np.load(os.path.join(path, "lookup.npy"))
+                               ).to(DEVICE)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("mesh (f): the sharded lookup is not "
+                                 "bit-equal to the unsharded one")
+        del got, want
+        want = embedding_bag(td, idd).cpu().numpy()
+    got = np.load(os.path.join(path, "bag.npy"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                               err_msg="mesh (f) bag")
+    err = float(np.abs(got - want).max())
+    secs = {k: max(r["seconds"][k] for r in ranks)
+            for k in ("lookup", "bag")}
+    log(f"[mesh] (f) 4 processes time-sharing one H100, mesh (1, "
+        f"{MESH_MODEL}), MIND's table {table.shape[0]} x {table.shape[1]} "
+        f"({table.shape[0] // MESH_MODEL} rows, "
+        f"{table.nbytes // MESH_MODEL >> 20} MiB a rank), ids "
+        f"{ids.shape}: embedding_lookup_sharded bit-equal to the unsharded "
+        f"lookup in {secs['lookup']:.3f} s, embedding_bag_sharded within "
+        f"rtol 1e-5 (max_abs_err={err:.3g}) in {secs['bag']:.3f} s "
+        f"(slowest rank, the staged all-reduce included; staged={staged})")
+    return {"lookup_s": secs["lookup"], "bag_s": secs["bag"], "bag_err": err}
 
 
 def _leaves(tree) -> list:
@@ -3535,6 +3613,299 @@ def phase_cli_fabric(env: dict) -> dict:
         f"0 dropped")
     return {"seconds": secs, "recall10": float(health.group(1)),
             "completions": int(done.group(1)), "failover": fails[0]}
+
+
+# --------------------------------------------------------------------------
+# phase 16: train the recsys family, then index and serve MIND's table
+# --------------------------------------------------------------------------
+# (arch, batch): the published widths and configured table rows, at the
+# train_batch shape; xDeepFM's CIN keeps a (B, 200 * 39, 10) f32 tensor a
+# layer for the backward (about 20 GB at 65,536), so its batch is cut
+TRAIN_ARCHS = (("mind", TRAIN_BATCH), ("din", TRAIN_BATCH),
+               ("wide_deep", TRAIN_BATCH), ("xdeepfm", 8192))
+TRAIN_STEPS, TRAIN_FIXED = 10, 6
+PARITY_ROWS, PARITY_BATCH = 2048, 512
+STEP_PARAM_ATOL = 1e-5           # tests/_torch_port.py: the parameters
+                                 # after one AdamW step, two implementations
+TRAIN_CLI_TIMEOUT_S = 300
+RETRIEVAL_ITEMS = (8192, 1 << 20)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.distributed.collectives import tree_flatten
+
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+
+def _same_bits(a, b) -> bool:
+    """Every leaf of two trees of 4-byte tensors equal bit for bit."""
+    import torch
+
+    from repro_torch.distributed.collectives import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(la, lb))
+
+
+def gather_determinism(table, ids, up) -> dict:
+    """For each way to gather rows, whether the gradient of the gathered
+    rows (times ``up``) comes out bit-equal in two runs on the card, with
+    the ids' repeats (Zipf: hot rows in every batch); the port's
+    ``embedding.gather_rows`` is ``F.embedding``."""
+    import torch
+    import torch.nn.functional as F
+
+    ways = {"F.embedding": lambda t, i: F.embedding(i, t),
+            "index_select": lambda t, i: torch.index_select(
+                t, 0, i.reshape(-1)).reshape(*i.shape, -1),
+            "advanced indexing": lambda t, i: t[i]}
+    out = {}
+    for name, fn in ways.items():
+        grads = []
+        for _ in range(2):
+            t = table.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(fn(t, ids), t, grad_outputs=up)
+            grads.append(g.view(torch.int32))
+        out[name] = {"bit_equal": bool(torch.equal(*grads)),
+                     "rows_differing": int((grads[0] != grads[1]).any(dim=1)
+                                           .sum())}
+        del grads
+    return out
+
+
+def train_arch(name: str, batch: int, card: str) -> dict:
+    """Phase 16 (a) for one arch at its published widths: 6 steps on one
+    fixed batch from the seeded init (the loss must fall), then
+    ``TRAIN_STEPS`` steps of fresh batches, each timed by CUDA events;
+    for MIND also two identical steps from one state (bit-equal) and the
+    gathers' determinism."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models.recsys import init_params, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get(name).config
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_params(cfg, gen, DEVICE)
+    opt = adamw.init(params)
+    state_bytes = _tree_bytes(params) + _tree_bytes(opt)
+    step = make_train_step(cfg)
+
+    def feed(seed):
+        b = recsys_batch(batch, cfg.n_sparse, cfg.table_rows,
+                         seq_len=cfg.seq_len, seed=seed)
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+
+    fixed = feed(10_000)
+    fixed_losses = []
+    for _ in range(TRAIN_FIXED):
+        params, opt, m = step(params, opt, fixed)
+        fixed_losses.append(float(m["loss"]))
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"train {name}: the loss on one fixed batch "
+                             f"did not fall: {fixed_losses}")
+    losses, ms = [], []
+    for s in range(TRAIN_STEPS):
+        b = feed(s)
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        params, opt, m = step(params, opt, b)
+        e.record()
+        e.synchronize()
+        ms.append(a.elapsed_time(e))
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train {name}: a loss is not finite")
+    out = {"batch": batch, "table": [cfg.table_rows, cfg.embed_dim],
+           "ms_first": ms[0], "ms_median": float(np.median(ms[1:])),
+           "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": state_bytes, "fixed_losses": fixed_losses,
+           "losses": losses}
+    if name == "mind":
+        x = step(params, opt, b)[:2]
+        y = step(params, opt, b)[:2]
+        out["two_steps_bit_equal"] = _same_bits(x, y)
+        if not out["two_steps_bit_equal"]:
+            raise AssertionError("train mind: two identical full-width "
+                                 "steps differ")
+        del x, y
+        ids = b["hist_ids"].long()
+        up = torch.randn((*ids.shape, cfg.embed_dim), device=DEVICE,
+                         generator=gen)
+        out["gathers"] = gather_determinism(params["table"], ids, up)
+        if not out["gathers"]["F.embedding"]["bit_equal"]:
+            raise AssertionError("F.embedding's backward is not "
+                                 "deterministic on this card")
+        del up
+    log(f"[train] {name} at its published widths (table "
+        f"{cfg.table_rows} x {cfg.embed_dim}, batch {batch}) on {card}: "
+        f"ms a step {out['ms_median']:.4g} (median of steps 2-"
+        f"{TRAIN_STEPS}; the first {ms[0]:.4g}), max_memory_allocated "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB, state (params + mu + nu) "
+        f"{state_bytes / 2**30:.3f} GiB; fixed-batch losses "
+        f"{[float(f'{v:.9g}') for v in fixed_losses]}; losses "
+        f"{[float(f'{v:.6g}') for v in losses]}")
+    if name == "mind":
+        log(f"[train] mind: two identical full-width steps from one state "
+            f"bit-equal (params and AdamWState): "
+            f"{out['two_steps_bit_equal']}; gathers' backward over "
+            f"{tuple(ids.shape)} Zipf ids, two runs: {out['gathers']}")
+    return out
+
+
+def train_parity(name: str) -> dict:
+    """Phase 16 (b): one step at a 2,048-row table on the card against the
+    same step on the CPU (plain torch) from the same params and batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.distributed.collectives import tree_flatten, tree_map
+    from repro_torch.models.recsys import init_params, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get(name).config, table_rows=PARITY_ROWS)
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    b = {k: torch.from_numpy(v) for k, v in recsys_batch(
+        PARITY_BATCH, cfg.n_sparse, PARITY_ROWS, seq_len=cfg.seq_len,
+        seed=3).items()}
+    step = make_train_step(cfg)
+    wp, wo, wm = step(params, adamw.init(params), b)
+    cuda = lambda t: t.to(DEVICE)
+    cp = tree_map(cuda, params)
+    gp, go, gm = step(cp, adamw.init(cp), tree_map(cuda, b))
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-5, err_msg=f"parity {name} loss")
+    err = 0.0
+    for got, want in ((gp, wp), (go.mu, wo.mu), (go.nu, wo.nu)):
+        for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+            g = g.cpu().numpy()
+            np.testing.assert_allclose(g, w.numpy(), rtol=0,
+                                       atol=STEP_PARAM_ATOL,
+                                       err_msg=f"parity {name}")
+            err = max(err, float(np.abs(g - w.numpy()).max()))
+    return {"loss_card": float(gm["loss"]), "loss_cpu": float(wm["loss"]),
+            "max_abs_err": err}
+
+
+def train_cli(work: str, card: str) -> dict:
+    """Phase 16 (c): the training CLI in subprocesses: a run that fails at
+    step 12, its relaunch (which must resume from step 10), and an
+    uninterrupted run whose final checkpoint's files the relaunch's must
+    equal byte for byte."""
+    import filecmp
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "mind", "--steps", "20", "--ckpt-every", "5", "--device", DEVICE]
+    wa, wb = os.path.join(work, "train-a"), os.path.join(work, "train-b")
+    runs = {}
+    for tag, extra in (("fail", ["--fail-at", "12", "--workdir", wa]),
+                       ("resume", ["--workdir", wa]),
+                       ("straight", ["--workdir", wb])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=ROOT, env=env,
+                              capture_output=True, text=True,
+                              timeout=TRAIN_CLI_TIMEOUT_S)
+        runs[tag] = (proc, time.perf_counter() - t0)
+    fail, resume, straight = (runs[k][0] for k in ("fail", "resume",
+                                                   "straight"))
+    if fail.returncode == 0 or "simulated node failure at step 12" \
+            not in fail.stderr:
+        raise AssertionError(f"train CLI --fail-at 12 exited "
+                             f"{fail.returncode}:\n{fail.stderr[-2000:]}")
+    for tag in ("resume", "straight"):
+        proc = runs[tag][0]
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI ({tag}) exited "
+                                 f"{proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+    if "resumed from step 10 (cursor=10)" not in resume.stdout:
+        raise AssertionError(f"train CLI: no resume line:\n{resume.stdout}")
+    a = os.path.join(wa, "ckpt", "step_00000020")
+    b = os.path.join(wb, "ckpt", "step_00000020")
+    names = sorted(os.listdir(b))
+    same, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    if mismatch or errors or sorted(os.listdir(a)) != names:
+        raise AssertionError(f"train CLI: the resumed run's checkpoint "
+                             f"differs in {mismatch + errors}")
+    for line in resume.stdout.splitlines():
+        log(f"[train-cli] {line}")
+    log(f"[train-cli] on {card}: --fail-at 12 exited {fail.returncode} "
+        f"({runs['fail'][1]:.1f} s); the relaunch resumed from step 10 "
+        f"({runs['resume'][1]:.1f} s); its step-20 checkpoint, {len(same)} "
+        f"files, byte-equal to an uninterrupted run's "
+        f"({runs['straight'][1]:.1f} s)")
+    return {"files": len(same),
+            "seconds": {k: v[1] for k, v in runs.items()}}
+
+
+def train_retrieval(card: str) -> dict:
+    """Phase 16 (d): ``examples/train_retrieval_torch.py``'s ``run`` at its
+    defaults and at a million items: recall@50 must equal the probe
+    ceiling (an exact f32 scan reaches it), and K23, K2 and B2 must
+    launch."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "train_retrieval_torch",
+        os.path.join(ROOT, "examples", "train_retrieval_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    out = {}
+    LAUNCHES.reset()
+    for items in RETRIEVAL_ITEMS:
+        r = twin.run(types.SimpleNamespace(steps=500, items=items,
+                                           device=DEVICE))
+        if abs(r["recall"] - r["ceiling"]) > 1e-6:
+            raise AssertionError(f"train retrieval at {items} items: "
+                                 f"recall@50 {r['recall']} vs its probe "
+                                 f"ceiling {r['ceiling']}")
+        log(f"[train] retrieval flow at {items} items on {card}: final "
+            f"loss {r['final_loss']:.4f} after {r['steps']} steps "
+            f"({r['train_s']:.1f} s), {r['n_clusters']} clusters built in "
+            f"{r['build_s']:.2f} s, recall@50 {r['recall']:.4f} = probe "
+            f"ceiling {r['ceiling']:.4f}, scanned fraction "
+            f"{r['scanned_frac']:.4f}")
+        out[items] = r
+    launches = path_launches("train retrieval (phase 16)")
+    for k in ("kmeans_batched", "kmeans_assign_update", "ivf_scan_topk"):
+        if DEVICE == "cuda" and launches[k] < 1:
+            raise AssertionError(f"the retrieval flow never launched {k}")
+    log(f"[train] retrieval flow launches: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return out
+
+
+def phase_train(work: str, card: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"archs": {name: train_arch(name, batch, card)
+                     for name, batch in TRAIN_ARCHS}}
+    out["parity"] = {name: train_parity(name) for name, _ in TRAIN_ARCHS}
+    log(f"[train] one step at {PARITY_ROWS} rows, batch {PARITY_BATCH}, "
+        f"card against CPU: loss within rtol 1e-5, params and moments "
+        f"within atol {STEP_PARAM_ATOL}: "
+        f"{ {k: v['max_abs_err'] for k, v in out['parity'].items()} }")
+    out["cli"] = train_cli(work, card)
+    out["retrieval"] = train_retrieval(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 16 {out['seconds']:.1f} s")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4232,6 +4603,7 @@ def main() -> int:
         phase_fabric(built, served, streamed)
         phase_cli(work)
         phase_mesh(work, built, served, resident)
+        phase_train(work, dev["card"])
         rows = phase_times(built, served, kernel_errs, resident, streamed)
     finally:
         if served is not None:

@@ -1,8 +1,10 @@
-"""Carry the reference package's index and LLSP state into the port.
+"""Carry the reference package's index, LLSP state, model parameters and
+optimizer state into the port.
 
 The JAX package's parameters arrive as numpy arrays (``np.asarray`` of each
-field) and leave as the port's dataclasses of tensors on ``device``.  This
-module imports nothing from the reference, so it runs where JAX is absent.
+field or leaf) and leave as the port's dataclasses or trees of tensors on
+``device``.  This module imports nothing from the reference, so it runs
+where JAX is absent.
 """
 from __future__ import annotations
 
@@ -76,3 +78,26 @@ def llsp_from_reference(params, *, device: DeviceLike = None
     return llsp_params(gbdt_arrays(params.router),
                        gbdt_arrays(params.pruners),
                        np.asarray(params.levels), device=device)
+
+
+def params_tree(tree, *, device: DeviceLike = None):
+    """A tree of tensors on ``device`` from a tree of arrays (a model's
+    parameters from the reference: nested dicts, lists and tuples of
+    ``np.asarray`` leaves); each leaf keeps its dtype."""
+    from repro_torch.distributed.collectives import tree_map
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a, order="C"))
+                    .to(dev), tree)
+
+
+def adamw_state(step, mu, nu, *, device: DeviceLike = None):
+    """An :class:`repro_torch.optim.AdamWState` from the reference's
+    ``AdamWState`` fields as arrays (``step`` an int32 scalar; ``mu`` and
+    ``nu`` trees like the parameters)."""
+    from repro_torch.optim import AdamWState
+
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(step, np.int32, dev),
+                      mu=params_tree(mu, device=dev),
+                      nu=params_tree(nu, device=dev))

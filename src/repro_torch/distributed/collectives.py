@@ -98,16 +98,47 @@ def tree_flatten(tree) -> tuple[list, object]:
 def tree_unflatten(structure, leaves: list):
     """The tree of ``structure`` (from :func:`tree_flatten`) over
     ``leaves``."""
-    it = iter(leaves)
+    return _build(structure, iter(leaves))
 
-    def build(s):
-        if s is None:
-            return next(it)
-        if s[0] == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        return s[0](build(c) for c in s[1])
 
-    return build(structure)
+def _build(s, it):
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle holding the leaves (a step's parameters on the card) until the
+    # cyclic garbage collector happens to run
+    if s is None:
+        return next(it)
+    if s[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(s[1], s[2])}
+    children = [_build(c, it) for c in s[1]]
+    if hasattr(s[0], "_fields"):                  # a NamedTuple
+        return s[0](*children)
+    return s[0](children)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of each
+    tree of ``rest``), as ``jax.tree.map``: the result has ``tree``'s
+    structure."""
+    leaves, structure = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    if any(len(o) != len(leaves) for o in others):
+        raise ValueError("trees do not match")
+    return tree_unflatten(structure,
+                          [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_flatten_with_path(tree, path: tuple = ()) -> list:
+    """[(path, leaf)] in :func:`tree_flatten`'s order; a path holds, for
+    each level, the dict key, the sequence index or the ``NamedTuple``
+    field name, as ``jax.tree_util.tree_flatten_with_path`` names them."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        return [pl for name, v in zip(names, tree)
+                for pl in tree_flatten_with_path(v, path + (name,))]
+    return [(path, tree)]
 
 
 def compressed_psum_tree(grads, group, errors=None):

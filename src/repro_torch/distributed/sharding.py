@@ -1,10 +1,11 @@
-"""Sharding rules of the ANNS layout (port of the ANNS parts of
-``repro.distributed.sharding``).
+"""Sharding rules of the ANNS layout and the recsys tables (port of the
+ANNS and recsys parts of ``repro.distributed.sharding``).
 
 Mesh axes (``launch/mesh.py``): single pod ``(data=16, model=16)``;
 multi-pod ``(pod=2, data=16, model=16)``.  ``pod`` composes with ``data``
 as an outer batch axis.  ANNS: queries over (pod, data); posting clusters
-over ``model``; centroids and LLSP replicated.
+over ``model``; centroids and LLSP replicated.  Recsys: embedding tables
+row-sharded over ``model``.
 
 A :class:`P` names, for each leading dimension of an array, the mesh axes
 it is split over: ``None`` (whole), one axis name, or a tuple of names
@@ -55,6 +56,10 @@ def anns_specs(mesh) -> dict:
         "queries": data_spec(mesh, None),
         "topk": data_spec(mesh),
     }
+
+
+def recsys_table_spec() -> P:
+    return P("model", None)          # rows over model: the EmbeddingBag path
 
 
 def _axes(entry) -> tuple:

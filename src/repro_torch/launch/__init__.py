@@ -1,6 +1,7 @@
 """Launchers (port of ``repro.launch``): the serving daemon,
 ``python -m repro_torch.launch.serve`` (single node, or the sharded fabric
-drill with ``--shards > 0``).
+drill with ``--shards > 0``), and the training driver,
+``python -m repro_torch.launch.train`` (the recsys family).
 
 The names of :mod:`repro_torch.launch.serve` are exported lazily, so that
 running the module with ``-m`` does not import it twice."""

@@ -24,7 +24,16 @@ Jobs (``kind``):
   ``cents.npy``, then the counts from ``kmeans_sharded_sums``;
 * ``collectives``: ``compressed_psum_tree`` of a tree held alike on every
   rank, ``bucketed_psum`` of the tree times (rank + 1), and
-  ``compressed_psum`` twice with error feedback.
+  ``compressed_psum`` twice with error feedback;
+* ``recsys``: the row-sharded embedding tables.  With ``embedding``,
+  ``embedding_lookup_sharded`` and ``embedding_bag_sharded`` (weighted by
+  ``weights.npy`` where it exists) over the rank's rows of ``table.npy``
+  and its block of ``ids.npy``; for each name of ``archs``,
+  ``forward(mesh=...)`` of that registry arch at ``rows`` table rows,
+  from the parameters checkpointed under ``<arch>_params`` (the port's
+  ``ckpt.save``) and the batch in ``<arch>_batch.npz``.  Rank 0 writes the
+  gathered outputs to ``lookup.npy``, ``bag.npy`` and
+  ``<arch>_logits.npy`` in ``work``.
 
 A job's ``kind`` may also be a function ``f(mesh, job)`` at the top level of
 a module of this package (``repro_torch.testing`` holds the ones that
@@ -216,31 +225,23 @@ def kmeans(mesh: Mesh, job: dict) -> dict:
 # --------------------------------------------------------------------------
 # collectives
 # --------------------------------------------------------------------------
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def collectives(mesh: Mesh, job: dict) -> dict:
     from repro_torch.distributed.collectives import bucketed_psum, \
-        compressed_psum, compressed_psum_tree
+        compressed_psum, compressed_psum_tree, tree_map
 
     group = mesh.group(job.get("axis", "data"))
     dev = mesh.device
-    tree = _tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(dev),
-                     job["tree"])
-    scaled = _tree_map(lambda t: t * float(mesh.index(job.get("axis",
-                                                              "data")) + 1),
-                       tree)
+    tree = tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(dev),
+                    job["tree"])
+    scaled = tree_map(lambda t: t * float(mesh.index(job.get("axis",
+                                                             "data")) + 1),
+                      tree)
     LAUNCHES.reset()
     comp, _ = compressed_psum_tree(tree, group)
     buck = bucketed_psum(scaled, group,
                          bucket_bytes=job.get("bucket_bytes", 64 << 20))
-    res = {"compressed": _tree_map(lambda t: t.cpu().numpy(), comp),
-           "bucketed": _tree_map(lambda t: t.cpu().numpy(), buck),
+    res = {"compressed": tree_map(lambda t: t.cpu().numpy(), comp),
+           "bucketed": tree_map(lambda t: t.cpu().numpy(), buck),
            "launches": LAUNCHES.snapshot(), "host_staged": mesh.host_staged,
            "rank": mesh.rank}
     if "ef" in job:
@@ -251,4 +252,82 @@ def collectives(mesh: Mesh, job: dict) -> dict:
     return res
 
 
-_KINDS = {"serve": serve, "kmeans": kmeans, "collectives": collectives}
+# --------------------------------------------------------------------------
+# the row-sharded recsys tables
+# --------------------------------------------------------------------------
+def _timed(mesh: Mesh, fn):
+    """(fn's result, its wall seconds between two barriers)."""
+    _sync(mesh)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(mesh)
+    return out, time.perf_counter() - t0
+
+
+def _cut(params: dict, specs: dict, fn) -> dict:
+    """``fn(leaf, spec)`` over a nested dict of parameters and the nested
+    dict of their partition specs (whose leaves are tuples)."""
+    return {k: _cut(v, specs[k], fn) if isinstance(v, dict)
+            else fn(v, specs[k]) for k, v in params.items()}
+
+
+def recsys(mesh: Mesh, job: dict) -> dict:
+    import dataclasses
+
+    from repro_torch import ckpt
+    from repro_torch.configs import get
+    from repro_torch.distributed.collectives import tree_map
+    from repro_torch.distributed.sharding import P, batch_axes, \
+        gather_axes, recsys_table_spec, shard_local
+    from repro_torch.models.recsys import embedding_bag_sharded, \
+        embedding_lookup_sharded, forward, param_shapes, param_specs
+
+    work, dev = job["work"], mesh.device
+    axes = batch_axes(mesh)
+    res: dict = {"rank": mesh.rank, "host_staged": mesh.host_staged,
+                 "seconds": {}}
+    outs: dict = {}
+    LAUNCHES.reset()
+    with torch.no_grad():
+        if job.get("embedding"):
+            table = _block(work, "table", recsys_table_spec(), mesh)
+            ids = _block(work, "ids", P(axes), mesh)
+            weights = _block(work, "weights", P(axes), mesh) \
+                if os.path.exists(os.path.join(work, "weights.npy")) \
+                else None
+            for name, fn in (
+                    ("lookup", lambda: embedding_lookup_sharded(
+                        table, ids, mesh, axes)),
+                    ("bag", lambda: embedding_bag_sharded(
+                        table, ids, mesh, weights, axes))):
+                out, res["seconds"][name] = _timed(mesh, fn)
+                outs[name] = gather_axes(out, mesh, axes)
+            del table
+        for arch_name in job.get("archs", ()):
+            cfg = dataclasses.replace(get(arch_name).config,
+                                      table_rows=job["rows"])
+            like = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype),
+                            param_shapes(cfg))
+            params, _, _ = ckpt.restore(
+                like, os.path.join(work, f"{arch_name}_params"))
+            params = _cut(params, param_specs(cfg),
+                          lambda t, spec: shard_local(t, spec, mesh)
+                          .contiguous().to(dev))
+            with np.load(os.path.join(work, f"{arch_name}_batch.npz")) as z:
+                batch = {k: torch.from_numpy(np.ascontiguousarray(
+                    shard_local(z[k], P(axes), mesh))).to(dev)
+                    for k in z.files}
+            logits, res["seconds"][arch_name] = _timed(
+                mesh, lambda: forward(params, batch, cfg, mesh, axes))
+            outs[f"{arch_name}_logits"] = gather_axes(logits, mesh, axes)
+    res["launches"] = LAUNCHES.snapshot()
+    if mesh.rank == 0:
+        for name, t in outs.items():
+            np.save(os.path.join(work, f"{name}.npy"), t.cpu().numpy())
+        res["files"] = sorted(outs)
+    return res
+
+
+_KINDS = {"serve": serve, "kmeans": kmeans, "collectives": collectives,
+          "recsys": recsys}

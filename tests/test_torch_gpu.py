@@ -7,7 +7,9 @@ This file imports no JAX, so it runs on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The batched k-means K23 is held against its plain version and, bit for
-bit, against the per-node CUDA loop (K2, sort, K3) it replaces.
+bit, against the per-node CUDA loop (K2, sort, K3) it replaces.  The
+recsys family: one train step of each arch on the card against the CPU,
+two identical MIND steps bit-equal, a checkpoint of CUDA tensors.
 """
 import dataclasses
 
@@ -1121,3 +1123,96 @@ def test_kmeans_sharded_step_on_card_four_gloo_ranks(cuda, tmp_path):
     for (r,) in res:
         assert r["launches"]["kmeans_assign_update"] >= 1
         assert r["launches"]["kmeans_mstep"] == 0
+
+
+# --------------------------------------------------------------------------
+# the recsys family on the card
+# --------------------------------------------------------------------------
+RS_ARCHS = ["xdeepfm", "wide_deep", "mind", "din"]
+
+
+def _recsys_case(name, rows=2048, batch=256, seed=0):
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models.recsys import init_params
+
+    cfg = dataclasses.replace(get(name).config, table_rows=rows)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    b = recsys_batch(batch, cfg.n_sparse, rows, seq_len=cfg.seq_len,
+                     seed=seed)
+    return cfg, params, {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _to(tree, device):
+    from repro_torch.distributed.collectives import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.parametrize("name", RS_ARCHS)
+def test_recsys_step_card_matches_cpu(cuda, name):
+    """One train step of each arch at a 2,048-row table on the card against
+    the same step on the CPU from the same parameters and batch: the loss
+    within rtol 1e-5, the parameters within STEP_PARAM_ATOL."""
+    from _torch_port import STEP_PARAM_ATOL
+    from repro_torch.distributed.collectives import tree_flatten
+    from repro_torch.models.recsys import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg, params, batch = _recsys_case(name)
+    step = make_train_step(cfg)
+    wp, wo, wm = step(params, adamw.init(params), batch)
+    cp = _to(params, cuda)
+    gp, go, gm = step(cp, adamw.init(cp), _to(batch, cuda))
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-5)
+    for got, want in ((gp, wp), (go.mu, wo.mu)):
+        for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+            assert g.is_cuda
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=STEP_PARAM_ATOL, err_msg=name)
+
+
+def test_mind_steps_bit_equal_on_the_card(cuda):
+    """Two identical MIND steps from one state on the card give the same
+    bits (the gather's backward sums repeated Zipf ids in a fixed order)."""
+    from repro_torch.distributed.collectives import tree_flatten
+    from repro_torch.models.recsys import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg, params, batch = _recsys_case("mind", rows=1 << 16, batch=4096)
+    params, batch = _to(params, cuda), _to(batch, cuda)
+    step = make_train_step(cfg)
+    opt = adamw.init(params)
+    params, opt, _ = step(params, opt, batch)      # non-zero moments
+    a = step(params, opt, batch)[:2]
+    b = step(params, opt, batch)[:2]
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        # every leaf is float32 or int32: compare the bits
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_ckpt_roundtrip_of_cuda_tensors(cuda, tmp_path):
+    """A tree of CUDA tensors, bfloat16 included, saved and restored onto
+    the card bit for bit, each leaf on its tree_like leaf's device and
+    dtype."""
+    from repro_torch import ckpt
+    from repro_torch.distributed.collectives import tree_flatten
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn((64, 3), generator=g, device=cuda),
+            "opt": [torch.arange(5, dtype=torch.int32, device=cuda),
+                    {"m": torch.randn((4, 4), generator=g, device=cuda)
+                     .to(torch.bfloat16)}]}
+    ckpt.save(tree, 1, str(tmp_path), extra={"cursor": 1})
+    like = {"w": torch.zeros((64, 3), device=cuda),
+            "opt": [torch.zeros(5, dtype=torch.int32, device=cuda),
+                    {"m": torch.zeros((4, 4), dtype=torch.bfloat16,
+                                      device=cuda)}]}
+    out, step, extra = ckpt.restore(like, str(tmp_path))
+    assert step == 1 and extra == {"cursor": 1}
+    for a, b in zip(tree_flatten(out)[0], tree_flatten(tree)[0]):
+        assert a.device == b.device and a.dtype == b.dtype
+        bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t)
+        assert torch.equal(bits(a), bits(b))

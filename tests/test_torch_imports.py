@@ -1,6 +1,8 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the machine
-with the card has no JAX), and importing the port builds no kernel."""
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the examples' torch twins import ``jax``, the
+JAX package ``repro`` or ``ml_dtypes`` (which ships with JAX; the machine
+with the card has none of them), and importing the port builds no
+kernel."""
 import ast
 import os
 import subprocess
@@ -10,12 +12,13 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py",
+           ROOT / "examples" / "train_retrieval_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -36,9 +39,9 @@ def test_port_module_imports_neither_jax_nor_repro(path):
 
 
 def test_port_imports_without_jax_or_kernel_build():
-    """Import every port module in a fresh interpreter where ``jax`` and
-    ``repro`` cannot be imported: nothing reaches for them, and no kernel
-    library is built at import time."""
+    """Import every port module in a fresh interpreter where ``jax``,
+    ``repro`` and ``ml_dtypes`` cannot be imported: nothing reaches for
+    them, and no kernel library is built at import time."""
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -46,7 +49,7 @@ def test_port_imports_without_jax_or_kernel_build():
             for m in mods]
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    __import__(m)\n"

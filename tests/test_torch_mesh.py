@@ -84,6 +84,32 @@ def test_tree_flatten_follows_the_reference_order():
     assert tree_unflatten(st, leaves) == tree
 
 
+def test_tree_flatten_and_unflatten_an_adamw_state():
+    """A NamedTuple node (``AdamWState``) is rebuilt from its children as
+    positional arguments, and its leaves come in the order
+    ``jax.tree_util.tree_flatten`` gives the reference's ``adamw.init``."""
+    from repro.optim import adamw
+    from repro_torch.distributed.collectives import tree_flatten, \
+        tree_unflatten
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim import init as tinit
+
+    rng = np.random.default_rng(2)
+    params = {"w": rng.normal(size=(3, 2)).astype(np.float32),
+              "b": {"x": rng.normal(size=(2,)).astype(np.float32)}}
+    tree = (params, tinit({"w": torch.from_numpy(params["w"]),
+                           "b": {"x": torch.from_numpy(params["b"]["x"])}}))
+    leaves, st = tree_flatten(tree)
+    back = tree_unflatten(st, leaves)
+    assert isinstance(back[1], AdamWState)
+    assert back[1].step is tree[1].step
+    ref = (params, adamw.init(jax.tree.map(jnp.asarray, params)))
+    want = jax.tree_util.tree_leaves(ref)
+    assert [tuple(np.shape(a)) for a in leaves] == [w.shape for w in want]
+    assert [str(np.asarray(a).dtype) for a in leaves] == [
+        str(w.dtype) for w in want]
+
+
 # --------------------------------------------------------------------------
 # collectives on process groups
 # --------------------------------------------------------------------------
@@ -158,6 +184,81 @@ def test_kmeans_sharded_step_matches_reference(tmp_path, fused):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(res["centroids"][5], cents[5])
     assert res["rows"] == 512
+
+
+# --------------------------------------------------------------------------
+# the row-sharded recsys tables
+# --------------------------------------------------------------------------
+RECSYS_ROWS = 2048
+
+
+def test_recsys_sharded_embeddings_and_forward_match(tmp_path):
+    """tests/test_multidevice.py part 2 on the port, one spawn of four gloo
+    ranks: a 64 x 8 table and ids 16 x 5 in [-1, 64) on meshes (2, 2)
+    (weighted) and (1, 4): ``embedding_bag_sharded`` within rtol and atol
+    1e-5 (part 2's) of the reference's ``embedding_bag``,
+    ``embedding_lookup_sharded`` bit-equal to the reference's lookup (a
+    -0.0 entry and an empty slot included); on (2, 2), ``forward(mesh=...)`` of each
+    recsys arch (tables of 2,048 rows, a batch of 32) within rtol 1e-5 of
+    the port's unsharded forward on the same parameters."""
+    import dataclasses
+
+    from repro.models.recsys.embedding import embedding_bag, \
+        embedding_lookup
+    from repro_torch import ckpt
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys as trs
+
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(64, 8)).astype(np.float32)
+    ids = rng.integers(-1, 64, size=(16, 5)).astype(np.int32)
+    # a -0.0 entry must come back -0.0 and an empty slot +0.0
+    table[7, 3] = -0.0
+    ids[0, :2] = 7, -1
+    weights = rng.uniform(0.5, 2.0, size=(16, 5)).astype(np.float32)
+    archs = ["xdeepfm", "wide_deep", "mind", "din"]
+    work = {}
+    for tag, w in (("2x2", weights), ("1x4", None)):
+        work[tag] = tmp_path / tag
+        work[tag].mkdir()
+        np.save(work[tag] / "table.npy", table)
+        np.save(work[tag] / "ids.npy", ids)
+        if w is not None:
+            np.save(work[tag] / "weights.npy", w)
+    want_logits = {}
+    for i, name in enumerate(archs):
+        cfg = dataclasses.replace(get(name).config, table_rows=RECSYS_ROWS)
+        params = trs.init_params(cfg, torch.Generator().manual_seed(i))
+        batch = recsys_batch(32, cfg.n_sparse, RECSYS_ROWS,
+                             seq_len=cfg.seq_len, seed=i)
+        ckpt.save(params, 0, str(work["2x2"] / f"{name}_params"))
+        np.savez(work["2x2"] / f"{name}_batch.npz", **batch)
+        with torch.no_grad():
+            want_logits[name] = trs.forward(
+                params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                cfg).numpy()
+    out = _spawn(4, [
+        {"kind": "recsys", "shape": (2, 2), "work": str(work["2x2"]),
+         "embedding": True, "archs": archs, "rows": RECSYS_ROWS},
+        {"kind": "recsys", "shape": (1, 4), "work": str(work["1x4"]),
+         "embedding": True}], timeout_s=180)
+    assert out[0][0]["files"] == sorted(["lookup", "bag"] + [
+        f"{a}_logits" for a in archs])
+    lookup = np.asarray(embedding_lookup(jnp.asarray(table),
+                                         jnp.asarray(ids)))
+    for tag, w in (("2x2", weights), ("1x4", None)):
+        bag = np.asarray(embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                                       None if w is None
+                                       else jnp.asarray(w)))
+        np.testing.assert_allclose(np.load(work[tag] / "bag.npy"), bag,
+                                   rtol=1e-5, atol=1e-5, err_msg=tag)
+        got = np.load(work[tag] / "lookup.npy")
+        assert got.tobytes() == lookup.tobytes(), tag
+    for name in archs:
+        np.testing.assert_allclose(
+            np.load(work["2x2"] / f"{name}_logits.npy"), want_logits[name],
+            rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 # --------------------------------------------------------------------------
