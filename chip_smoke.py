@@ -165,7 +165,43 @@ Phases, each of which raises on failure:
     resumes from step 10, and its step-20 checkpoint is byte-equal to an
     uninterrupted run's; (d) ``examples/train_retrieval_torch.py``'s
     ``run`` at 8,192 and 1,048,576 items (500 steps each): recall@50
-    equal to the probe ceiling within 1e-6, and K23, K2 and B2 launched.
+    equal to the probe ceiling within 1e-6, and K23, K2 and B2 launched;
+17. the LM and GNN families (``[lm]``, ``[gnn]``, ``[lm-cli]``): (a) each
+    of the five LMs at its published widths in bf16 (llama4-scout at 8
+    of its 48 layers), one at a time: ``prefill_step`` on
+    ``token_batch(2, 4,096)`` (prefill_32k, cut), checked against
+    ``forward`` over the same tokens (< 2e-3 of the scale), then 64
+    ``decode_step``s past every 1,024-slot ring, each against a
+    ``forward`` oracle over all 4,160 tokens (q_chunk 64) within 5e-2 of
+    the scale, with MoE capacity 16 for both, over the steps' rows whose
+    MoE picks all equal the oracle's (at least 0.18 of qwen2-moe's and
+    0.875 of llama4-scout's; every other row must flip first at a near
+    tie, ``route_checks``; the attention projections rescaled to 1/sqrt
+    of their contracted dims, ``contracted_fan_in``):
+    prefill ms and tokens/s, decode ms a token, peak memory; (b)
+    phi4-mini at full width (3.84 B bf16 params, the same rescale, remat
+    per block, the step donating its state) on ``token_batch(B, 4,097)`` at the largest
+    B of 4, 2, 1 that fits: 6 steps on one batch (the loss falls), ms a
+    step, peak, the state's bytes, the first step repeated from the same
+    seeded state bit-equal; (c) GraphCast at full width (16 x 512, 227
+    vars) on full_graph_sm, molecule and minibatch_lg (6 steps each, the
+    loss falls; full_graph_sm's step repeated bit-equal), then
+    ogb_products' forward (2,449,029 nodes, 4,194,304 edges, cut); (d)
+    one scaled step of each LM and GraphCast on the card against the CPU,
+    the training CLI's qwen2-moe ``--fail-at 12`` drill (the relaunch's
+    step-20 checkpoint byte-equal), ``--accum 2`` and GraphCast, and two
+    runs of the MoE combine and ``segment_sum`` bit-equal.  No kernel of
+    the library launches here (phase 6's column counts zeros).
+
+Phase 15 also runs (g) one full-width qwen2-moe MoE layer (64 experts,
+16 a rank) over 2 x 4,096 tokens at mesh (1, 4), four gloo processes
+against one process's ``moe_ffn`` (bf16 within 2e-2 of the scale, a
+float32 copy within rtol 2e-3), and (h) GraphCast's ``forward_rowdp`` at
+(1, 4) on minibatch_lg's sizes, dst-sorted, against the dense forward
+(1e-4).  Phase 13's ``[rebuild]`` line carries the poller's longest gap
+between SQ drains and the SQ's peak length per window of the rebuild,
+from the engine's ``drain_log`` (held to its ``sq_peak`` and
+``drain_gap_max_s`` stats).
 
 The last line of standard output is the device JSON; the script exits
 non-zero, printing no result, when there is no CUDA device or when it runs
@@ -173,6 +209,7 @@ outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -201,6 +238,9 @@ CLI_N = 100_000                  # phase 12's corpus size per index
 CLI_TIMEOUT_S = 600              # phase 12's subprocess
 MAX_PER_NODE_LAUNCHES = 200      # K2 or K3 launches a 1M build may make
                                  # (the per-node splitter made 81,579)
+
+
+CARD = [""]                      # nvidia-smi's name and power limit
 
 
 def log(*a) -> None:
@@ -2650,6 +2690,40 @@ def submit_all(engine, name: str, queries) -> list:
     return [engine.submit(q, 10, index=name, block=True) for q in queries]
 
 
+# the last phase 13 run's windows, set before its checks (read by
+# tools/rebuild_gaps.py, which samples the threads' stacks over them)
+REBUILD_WINDOWS: dict = {}
+
+
+def rebuild_windows(rep, t_end: float) -> dict:
+    """The rebuild's windows as (start, end) on the monotonic clock."""
+    return {"before": (-float("inf"), rep.t_start),
+            "snapshot": (rep.t_start, rep.t_snapshot),
+            "build": (rep.t_snapshot, rep.t_built),
+            "swap": (rep.t_built, rep.t_swapped),
+            "after": (rep.t_swapped, t_end)}
+
+
+def poll_gaps(drains, rep, t_end: float) -> tuple:
+    """(the poller's longest gap between two SQ drains, in ms, and the
+    SQ's peak length: the most submissions one drain took) for each
+    rebuild window, from the engine's ``drain_log`` of (time, taken); a
+    gap counts in every window it overlaps."""
+    wins = rebuild_windows(rep, t_end)
+    gap = {w: 0.0 for w in wins}
+    peak = {w: 0 for w in wins}
+    drains = list(drains)
+    for (a, _), (b, _) in zip(drains, drains[1:]):
+        for w, (lo, hi) in wins.items():
+            if a < hi and b > lo:
+                gap[w] = max(gap[w], (b - a) * 1e3)
+    for t, n in drains:
+        for w, (lo, hi) in wins.items():
+            if lo <= t < hi:
+                peak[w] = max(peak[w], n)
+    return ({w: round(v, 3) for w, v in gap.items()}, peak)
+
+
 def phase_rebuild(work: str, built: dict, served: dict) -> dict:
     """The live delta rebuild on phase 3's corpus and centroids (module
     doc, phase 13)."""
@@ -2713,17 +2787,21 @@ def phase_rebuild(work: str, built: dict, served: dict) -> dict:
     old_pids = pipe0.tier.posting_ids  # the tier drops it when it retires
     comps: dict = {}                   # req_id -> completion (main thread)
     selfq: dict = {}                   # window -> req_ids
+    stamps: dict = {}                  # the hook's start and end
     own = ins[:REBUILD_SELF]
 
     def build_then_query(index, new_state):
         """The scheduler's hook: build the new epoch, then, before the swap,
         run the self-queries through the engine on the old epoch."""
+        stamps["hook0"] = time.monotonic()
         pipe = hook(index, new_state)
+        stamps["hook1"] = time.monotonic()
         selfq["during"] = submit_all(engine, spec.name, own)
         t_end = time.monotonic() + 120.0
         while not all(r in comps for r in selfq["during"]) \
                 and time.monotonic() < t_end:
             time.sleep(0.01)
+        stamps["selfq1"] = time.monotonic()
         return pipe
 
     vm = VersionManager()
@@ -2731,7 +2809,8 @@ def phase_rebuild(work: str, built: dict, served: dict) -> dict:
     lane = UpdateLane(state, obs=obs)
     engine = ServeEngine({spec.name: pipe0},
                          DynamicBatcher(policy, [spec.name]), depth=2,
-                         obs=obs, update_lanes={spec.name: lane})
+                         obs=obs, update_lanes={spec.name: lane},
+                         drain_log=1 << 20)
     vm.bind(engine)
     sched = RebuildScheduler(
         name=spec.name, corpus=corpus, centroids=cents, workdir=wd,
@@ -2807,6 +2886,9 @@ def phase_rebuild(work: str, built: dict, served: dict) -> dict:
         sched.stop()
         engine.stop(drain=True)
         collect(engine, comps)
+    t_end = time.monotonic()
+    if sched.reports:
+        REBUILD_WINDOWS.update(rebuild_windows(sched.reports[0], t_end))
     torch.cuda.synchronize()
     launches = path_launches("live rebuild, both epochs (phase 13)")
     if sched.failures:
@@ -2882,7 +2964,14 @@ def phase_rebuild(work: str, built: dict, served: dict) -> dict:
     cids = np.concatenate([pipe0.route(pool[rows[i:i + 256]],
                                        tks[i:i + 256])[0]
                            for i in range(0, len(rows), 256)])
-    stamps = rep.stage2["shard_stamps"]
+    shard_stamps = rep.stage2["shard_stamps"]
+    gaps, sq_peak = poll_gaps(engine.drain_log, rep, t_end)
+    if len(engine.drain_log) == engine.drain_log.maxlen \
+            or max(sq_peak.values()) != st.sq_peak \
+            or abs(max(gaps.values()) - st.drain_gap_max_s * 1e3) > 1e-3:
+        raise AssertionError(f"rebuild: the drain log ({len(engine.drain_log)}"
+                             f" drains) disagrees with the engine's stats "
+                             f"{st}: {gaps}, {sq_peak}")
     res = {"cold_s": cold_s, "full_s": full_s,
            "snapshot_s": rep.t_snapshot - rep.t_start,
            "build_s": rep.t_built - rep.t_snapshot,
@@ -2893,14 +2982,18 @@ def phase_rebuild(work: str, built: dict, served: dict) -> dict:
            "shards_reused": rep.shards_reused,
            "bytes_streamed": rep.bytes_streamed,
            "stage2_load_s": sum(s["load_end"] - s["load_start"]
-                                for s in stamps),
+                                for s in shard_stamps),
            "stage2_stream_s": sum(s["stream_end"] - s["load_end"]
-                                  for s in stamps),
+                                  for s in shard_stamps),
            "stage2_assign_s": sum(s["assign_done"] - s["assign_dispatch"]
-                                  for s in stamps),
+                                  for s in shard_stamps),
            "stage2_harvest_s": sum(s["harvest_end"] - s["assign_done"]
-                                   for s in stamps),
+                                   for s in shard_stamps),
            "postings_s": rep.stage2["postings_s"],
+           "assign_load_s": rep.stage2["assign_load_s"],
+           "hook_s": stamps["hook1"] - stamps["hook0"],
+           "selfq_s": stamps["selfq1"] - stamps["hook1"],
+           "poll_gap_ms": gaps, "sq_peak": sq_peak,
            "offered_qps": len(trace) / ENGINE_TRACE_S,
            "arrival_span_s": span, "tail_arrivals": len(tail),
            "submitted": st.submitted,
@@ -3464,6 +3557,7 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
         raise AssertionError(f"graph baseline: recall {grecall}, hops "
                              f"{st.hops}")
     out["e"] = {"recall": grecall, "hops": st.hops, "build_s": build_s}
+    out["gh"] = mesh_lm_gnn(work, CARD[0])
     mesh_runs = [v for k, v in PATH_RUNS.items() if k.startswith("mesh ")]
     out["launches"] = {k: sum(r[k] for r in mesh_runs) for k in mesh_runs[0]}
     log(f"[mesh] phase 15 launches over every rank: {out['launches']}")
@@ -3477,6 +3571,141 @@ def phase_mesh(work: str, built: dict, served: dict, resident: dict) -> dict:
                 raise AssertionError(f"phase 15 launched {name}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[mesh] phase 15 {out['seconds']:.1f} s")
+    return out
+
+
+MOE_TOKENS = (2, 4096)           # phase 15 (g): qwen2-moe's prefill batch
+MOE_CAPACITY = 4.0
+MOE_BF16_TOL = 2e-2              # four bf16 roundings of partial sums on
+                                 # each side (2^-8 each), of the scale
+ROWDP_TOL = 1e-4                 # phase 15 (h)
+
+
+def rowdp_graph(n: int, e: int, shards: int, seed: int):
+    """Edges whose dst fall e / shards in each shard's row range, sorted by
+    dst (the data pipeline's contract for ``forward_rowdp``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows, per = n // shards, e // shards
+    dst = np.concatenate([rng.integers(r * rows, (r + 1) * rows, size=per)
+                          for r in range(shards)]).astype(np.int32)
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    order = np.argsort(dst, kind="stable")
+    return src[order], dst[order]
+
+
+def mesh_lm_gnn(work: str, card: str) -> dict:
+    """Phase 15 (g) and (h): expert parallelism of one full-width qwen2-moe
+    MoE layer, and GraphCast's row-sharded forward at minibatch_lg's
+    sizes, each at mesh (1, 4) over four gloo processes sharing the card,
+    against one process on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch import mesh_jobs
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.gnn import forward, init_params
+    from repro_torch.models.lm.moe import moe_ffn, moe_param_shapes
+
+    path = os.path.join(work, "mesh", "gh")
+    os.makedirs(path, exist_ok=True)
+    # capacity 4 (tests/test_multidevice.py part 3): no expert overflows,
+    # so the two sides route alike; at the config's 1.25 they may not, as
+    # the capacity race's float32 key keeps a token's probability only for
+    # the lowest expert ids (ROADMAP section 3), and a rank's local ids
+    # are lower than the global ones
+    lcfg = get("qwen2_moe").config
+    lcfg = dataclasses.replace(lcfg, moe=dataclasses.replace(
+        lcfg.moe, capacity_factor=MOE_CAPACITY))
+    moe, d = lcfg.moe, lcfg.d_model
+    g = torch.Generator().manual_seed(43)
+    layer = {}
+    for k, s in sorted(moe_param_shapes(moe, d, (), lcfg.dtype).items()):
+        x = torch.randn(s.shape, generator=g) / np.sqrt(s.shape[-2])
+        layer[k] = x.to(s.dtype)
+    torch.save(layer, os.path.join(path, "moe_layer.pt"))
+    x = (torch.randn((*MOE_TOKENS, d), generator=g)).to(torch.bfloat16)
+    np.save(os.path.join(path, "x.npy"), x.float().numpy())
+    gcfg = get("graphcast").config
+    shape = get("graphcast").shapes["minibatch_lg"]
+    n, e, f = (shape.get(k) for k in ("n_nodes", "n_edges", "d_feat"))
+    src, dst = rowdp_graph(n, e, 4, seed=47)
+    feats = np.random.default_rng(53).normal(size=(n, f)).astype(np.float32)
+    gparams = init_params(gcfg, f, torch.Generator().manual_seed(59), "cpu")
+    torch.save(gparams, os.path.join(path, "gnn.pt"))
+    mesh_write(path, {"node_feats": feats, "src": src, "dst": dst})
+    jobs = [{"kind": "moe", "work": path, "cfg": lcfg, "params": "moe_layer",
+             "layer": True, "out": "moe_bf16", "shape": (1, 4)},
+            {"kind": "moe", "work": path, "cfg": lcfg, "params": "moe_layer",
+             "layer": True, "dtype": torch.float32, "out": "moe_f32",
+             "shape": (1, 4)},
+            {"kind": "gnn_rowdp", "work": path, "cfg": gcfg, "params": "gnn",
+             "out": "rowdp", "shape": (1, 4)}]
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_jobs.run, (1, 4), ("data", "model"), backend="gloo",
+                  device=DEVICE, args=(jobs,), timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    by_job = list(zip(*ranks))
+    for i, what in enumerate(("mesh (g) MoE bf16", "mesh (g) MoE f32",
+                              "mesh (h) GraphCast row-DP")):
+        mesh_launches(by_job[i], f"{what} (phase 15)")
+    out = {"spawn_s": spawn_s}
+    dev_layer = {k: v.to(DEVICE) for k, v in layer.items()}
+    with torch.no_grad():
+        from repro_torch.models.lm.moe import router
+
+        _, _, top_e = router(x.to(DEVICE), dev_layer, moe)
+        load = int(torch.bincount(top_e.reshape(-1), minlength=moe.e).max())
+        cap = int(np.ceil(x.shape[0] * x.shape[1] * moe.top_k / moe.e
+                          * moe.capacity_factor))
+        if load > cap:
+            raise AssertionError(f"mesh (g): an expert overflows ({load} > "
+                                 f"{cap}): the sides may route apart")
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            lp = dev_layer if dt == torch.bfloat16 else {
+                k: v.float() for k, v in dev_layer.items()}
+            want = moe_ffn(x.to(DEVICE, dt), lp, moe, None).float().cpu()
+            got = torch.from_numpy(np.load(os.path.join(path,
+                                                        f"moe_{tag}.npy")))
+            err = rel_err(got, want)
+            if tag == "f32":
+                np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                           rtol=2e-3, atol=2e-3,
+                                           err_msg="mesh (g) f32")
+            elif err >= MOE_BF16_TOL:
+                raise AssertionError(f"mesh (g) bf16: {err}")
+            out[f"g_{tag}"] = {"rel": err, "seconds": max(
+                r["seconds"] for r in by_job[0 if tag == "bf16" else 1])}
+        del dev_layer, lp
+        from repro_torch.distributed.collectives import tree_map
+
+        gp = tree_map(lambda t: t.to(DEVICE), gparams)
+        t1 = time.perf_counter()
+        want = forward(gp, torch.from_numpy(feats).to(DEVICE),
+                       torch.from_numpy(src).to(DEVICE),
+                       torch.from_numpy(dst).to(DEVICE), gcfg).cpu().numpy()
+        dense_s = time.perf_counter() - t1
+    got = np.load(os.path.join(path, "rowdp.npy"))
+    np.testing.assert_allclose(got, want, rtol=ROWDP_TOL, atol=ROWDP_TOL,
+                               err_msg="mesh (h) forward_rowdp")
+    out["h"] = {"max_abs_err": float(np.abs(got - want).max()),
+                "seconds": max(r["seconds"] for r in by_job[2]),
+                "dense_s": dense_s}
+    log(f"[mesh] (g) one qwen2-moe MoE layer at its published widths (64 "
+        f"experts, 16 a rank, d 2048, d_ff 1408, 4 shared) over "
+        f"{MOE_TOKENS[0]} x {MOE_TOKENS[1]} tokens (capacity factor "
+        f"{MOE_CAPACITY}: largest expert load {load} of {cap}), 4 processes "
+        f"time-sharing one {card}, mesh (1, 4): bf16 against one process "
+        f"{out['g_bf16']['rel']:.3g} of the scale (< {MOE_BF16_TOL}), a "
+        f"float32 copy within rtol 2e-3 ({out['g_f32']['rel']:.3g}); "
+        f"{out['g_bf16']['seconds']:.3f} s a rank (bf16)")
+    log(f"[mesh] (h) GraphCast forward_rowdp at mesh (1, 4), {n} nodes, {e} "
+        f"dst-sorted edges, d_feat {f}, 16 layers of 512: against the "
+        f"dense forward max_abs_err {out['h']['max_abs_err']:.3g} (< "
+        f"{ROWDP_TOL}); {out['h']['seconds']:.3f} s a rank, dense "
+        f"{dense_s:.3f} s; spawn {spawn_s:.1f} s")
     return out
 
 
@@ -3905,6 +4134,818 @@ def phase_train(work: str, card: str) -> dict:
     out["retrieval"] = train_retrieval(card)
     out["seconds"] = time.perf_counter() - t0
     log(f"[train] phase 16 {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the LM and GNN families at their published widths
+# --------------------------------------------------------------------------
+# (arch, batch, layers kept: None = all); llama4-scout's 48 layers hold
+# 213.5 GB of bf16 weights, 8 of them 37.3 GB
+LM_SERVE = (("phi4_mini", 2, None), ("gemma3_12b", 2, None),
+            ("gemma3_27b", 2, None), ("qwen2_moe", 2, None),
+            ("llama4_scout", 2, 8))
+LM_PREFILL = 4096                # prefill_32k's 32 x 32,768, cut
+LM_DECODE = 64                   # decode steps after the prefill: past a
+                                 # 1,024-slot ring 4 times over
+LM_ORACLE_CHUNK = 64             # 4,160 % 1,024 != 0 would run one chunk
+LM_PREFILL_TOL = 2e-3            # tests/test_models_lm.py:88
+LM_DECODE_TOL = 5e-2             # tests/test_models_lm.py:75, bf16
+# the share of decode rows whose MoE picks all equal the oracle's, at
+# least: near the share measured (25 and 116 of 128 rows, PR 23 calls 7-9,
+# the same in each); the other rows must flip at a near tie (route_checks)
+LM_ROUTE_AGREE = {"qwen2_moe": 0.18, "llama4_scout": 0.875}
+LM_TRAIN = "phi4_mini"
+LM_TRAIN_BATCHES = (4, 2, 1)     # train_4k's 256 x 4,096, cut: the
+                                 # largest that fits
+LM_TRAIN_STEPS = 6
+GNN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_SEEDS = 1024                 # minibatch_lg's seed nodes
+OGB_EDGES = 1 << 22              # ogb_products' 61,859,140 edges, cut
+LM_PARITY_TOL = 1e-5             # tests/test_torch_lm.py's TOL
+
+
+def rel_err(got, want) -> float:
+    """The largest |got - want| over the largest |want| (the reference's
+    decode and prefill checks)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cuda_ms(fn):
+    """(fn's result, its milliseconds by CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, a.elapsed_time(e)
+
+
+def bits_digest(tree) -> list:
+    """For each leaf, two int64 sums of its raw bits (plain and weighted by
+    position mod 65,521), row block by row block: equal digests for a
+    repeated step, where one flipped bit changes them."""
+    import torch
+
+    from repro_torch.distributed.collectives import tree_flatten
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_flatten(tree)[0]:
+        v = t.contiguous().view(ints[t.element_size()]).reshape(-1)
+        s1 = s2 = 0
+        for i in range(0, v.numel(), 1 << 24):
+            blk = v[i:i + (1 << 24)].to(torch.int64)
+            w = (torch.arange(i, i + blk.numel(), device=blk.device)
+                 % 65521) + 1
+            s1 += int(blk.sum())
+            s2 += int((blk * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+def contracted_fan_in(params: dict, cfg) -> None:
+    """Rescale the attention projections in place from the reference's
+    init rule to normal / sqrt(the contracted dim).  The rule takes
+    shape[-2] as the fan-in, which for wq (D, H, Dh) is H: at the
+    published widths q and k reach ~10-20 an element and the scores
+    ~100-200, so softmax is a hard argmax, a one-ulp bf16 difference
+    between a decode step's (B, D) products and the forward's (B x S, D)
+    ones flips it (phi4-mini's decode came out 1.45 of the scale from its
+    oracle, PR 23 call 2), and through 32 layers the gradient's norm
+    reaches ~1e11, so the clipped AdamW step moves nothing (phi4-mini's
+    fixed-batch loss stayed 12.21276 for 6 steps, call 5).  With the
+    contracted dims the scores are ~1."""
+    import math
+
+    h, kv, d = cfg.heads_padded, cfg.n_kv, cfg.d_model
+    for group in ("layers", "tail"):
+        g = params.get(group)
+        if g is None:
+            continue
+        g["wq"].mul_(math.sqrt(h / d))
+        g["wk"].mul_(math.sqrt(kv / d))
+        g["wv"].mul_(math.sqrt(kv / d))
+        g["wo"].mul_(math.sqrt(1.0 / h))
+
+
+class recorded_routes(list):
+    """While open, each MoE router call's record from position ``start``
+    on (the ``models/lm/moe.py`` router, wrapped): the expert picks (B, S,
+    K) sorted, the router's input (B, S, D) and float32 logits (B, S, E),
+    and the largest 2-norm of the router's expert columns."""
+
+    def __init__(self, cfg, start: int = 0):
+        super().__init__()
+        self.on, self.start = cfg.moe is not None, start
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models.lm import moe
+
+        if self.on:
+            self._router = moe.router
+
+            def router(x, lp, cfg):
+                out = self._router(x, lp, cfg)
+                st = self.start
+                self.append({
+                    "picks": torch.sort(out[2][:, st:], dim=-1).values,
+                    "x": x[:, st:].float(),
+                    "logits": out[0][:, st:].clone(),
+                    "w_norm": lp["moe_router"].float().norm(dim=0).max()})
+                return out
+            moe.router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.lm import moe
+
+        if self.on:
+            moe.router = self._router
+        return False
+
+
+def route_checks(dec_routes: list, orc_routes: list, moe) -> dict:
+    """Each decode row's MoE routing against the oracle's at its position.
+    A row agrees where every layer's picks equal the oracle's.  Up to and
+    including the first layer whose picks differ, the router's input and
+    its float32 logits are held to the oracle's (``x_err``, ``logit_err``:
+    the largest over those layers of |decode - oracle| over the largest
+    |oracle|).  At that layer the oracle's gap between its k-th and
+    (k+1)-th logit must lie within what the drift moved two logits apart:
+    a swap of a chosen expert a for an unchosen c needs logit_a - logit_c
+    <= |d_a| + |d_c| <= 2 max |d| (``moved``), and the logits' drift must
+    lie within what the input's drift can give, |d_e| <= ||dx||_2 *
+    ||W_e||_2 (``reach``), each plus a float32 rounding slack of 1e-5 of
+    the largest logit.  Returns arrays over (step, row) and the flipped
+    rows' records.
+    """
+    import torch
+
+    if not orc_routes:
+        return {"agree": None, "x_err": 0.0, "logit_err": 0.0, "flips": [],
+                "bad": 0}
+    n, k = moe.n_experts, moe.top_k
+    # (T, L, B, ...) for the decode steps and the oracle's positions
+    stack = lambda key: torch.stack([torch.stack([d[key][:, 0]
+                                                  for d in steps])
+                                     for steps in dec_routes])
+    pd, xd, ld = stack("picks"), stack("x"), stack("logits")[..., :n]
+    po, xo, lo = (torch.stack([o[key] for o in orc_routes]).permute(
+        2, 0, 1, 3) for key in ("picks", "x", "logits"))
+    lo = lo[..., :n]
+    w_norm = torch.stack([o["w_norm"] for o in orc_routes])      # (L,)
+    flipped = (pd != po).any(-1)                                 # (T, L, B)
+    agree = ~flipped.any(1)                                      # (T, B)
+    before = flipped.long().cumsum(1) - flipped.long() == 0      # <= first
+    first = flipped & before
+    rel = lambda a, b: (a - b).abs().amax(-1) / (b.abs().amax(-1) + 1e-6)
+    x_err, logit_err = rel(xd, xo), rel(ld, lo)
+    srt = lo.sort(dim=-1, descending=True).values
+    gap = srt[..., k - 1] - srt[..., k]
+    moved = (ld - lo).abs().amax(-1)
+    reach = (xd - xo).norm(dim=-1) * w_norm[None, :, None]
+    slack = 1e-5 * lo.abs().amax(-1)
+    bad = first & ((gap > 2 * moved + slack) | (moved > reach + slack))
+    flips = [{"step": int(t), "row": int(b), "layer": int(l),
+              "gap": float(gap[t, l, b]), "moved": float(moved[t, l, b]),
+              "reach": float(reach[t, l, b]),
+              "x_err": float(x_err[t, l, b])}
+             for t, l, b in first.nonzero().tolist()]
+    return {"agree": agree.cpu(), "x_err": float(x_err[before].max()),
+            "logit_err": float(logit_err[before].max()), "flips": flips,
+            "bad": int(bad.sum())}
+
+
+def extend_cache(cache: dict, cfg, batch: int, seq: int) -> dict:
+    """Caches of ``seq`` positions holding a prefill's: the global caches
+    copied into the first positions, the rings as they are."""
+    from repro_torch.models.lm import init_cache
+
+    out = init_cache(cfg, batch, seq, device=DEVICE)
+    for k, v in cache.items():
+        if k in ("k_g", "v_g"):
+            out[k][:, :, :v.shape[2]] = v
+        else:
+            out[k].copy_(v)
+    return out
+
+
+def lm_serve(name: str, batch: int, layers, card: str) -> dict:
+    """Phase 17 (a) for one arch: prefill, 64 decode steps and the
+    forward oracle at the published widths in bf16 (module doc)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import decode_step, forward, init_params, \
+        prefill_step
+
+    cfg = get(name).config
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    free_card()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                         DEVICE)
+    contracted_fan_in(params, cfg)
+    weights = _tree_bytes(params)
+    total = LM_PREFILL + LM_DECODE
+    toks = torch.from_numpy(token_batch(batch, total, cfg.vocab, seed=17)
+                            ).to(DEVICE)
+    pre = toks[:, :LM_PREFILL]
+    emb = params["embed"]
+    with torch.no_grad():
+        (logits, cache), pre_ms = cuda_ms(
+            lambda: prefill_step(params, pre, cfg))
+        # the reference's prefill check: forward over the same tokens at
+        # the config's own chunking and capacity
+        h = forward(params, pre, cfg)
+        want = (h[:, -1] @ emb.T).float()
+        pre_err = rel_err(logits, want)
+        del h, want
+        # decode and its oracle with MoE capacity 16, so that routing
+        # cannot differ between a batch of 2 and one of 2 x 4,160 tokens
+        dcfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+        dlogits = logits
+        if cfg.moe is not None:
+            del cache
+            dlogits, cache = prefill_step(params, pre, dcfg)
+        cache = extend_cache(cache, cfg, batch, total)
+        dec, ms, dec_routes = [], [], []
+        for i in range(LM_DECODE):
+            pos = LM_PREFILL + i
+            with recorded_routes(cfg) as r:
+                (lg, cache), t = cuda_ms(lambda: decode_step(
+                    params, cache, toks[:, pos], pos, dcfg))
+            dec.append(lg)
+            dec_routes.append(r)
+            ms.append(t)
+        del cache
+        ocfg = dataclasses.replace(dcfg, q_chunk=LM_ORACLE_CHUNK)
+        with recorded_routes(cfg, LM_PREFILL) as orc_routes:
+            h = forward(params, toks, ocfg)[:, LM_PREFILL - 1:]
+        oracle = (h @ emb.T).float()                 # (B, 65, V)
+        del h
+    oracle_pre_err = rel_err(dlogits, oracle[:, 0])
+    # a one-ulp bf16 difference in a router's input flips a pick at a near
+    # tie of the k-th and (k+1)-th logit, and a flipped row's logits follow
+    # other experts from there: hold the routing up to the flip instead
+    routes = route_checks(dec_routes, orc_routes, cfg.moe)
+    del dec_routes, orc_routes
+    agree = routes["agree"]
+    if agree is None:
+        agree = torch.ones(LM_DECODE, batch, dtype=torch.bool)
+    errs = [[rel_err(lg[b], oracle[b, i + 1]) for b in range(batch)]
+            for i, lg in enumerate(dec)]
+    pairs = [(i, b) for i in range(LM_DECODE) for b in range(batch)]
+    dec_err = max(errs[i][b] for i, b in pairs if agree[i, b]) \
+        if bool(agree.any()) else float("inf")
+    all_err = max(errs[i][b] for i, b in pairs)
+    share = float(agree.float().mean())
+    floor = LM_ROUTE_AGREE.get(name, 1.0)
+    flips = routes["flips"]
+    gap_moved = max((f["gap"] / max(2 * f["moved"], 1e-30) for f in flips),
+                    default=0.0)
+    moved_reach = max((f["moved"] / max(f["reach"], 1e-30) for f in flips),
+                      default=0.0)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in dec)
+    out = {"batch": batch, "layers": cfg.n_layers, "weights_bytes": weights,
+           "prefill_ms": pre_ms,
+           "prefill_tokens_per_s": batch * LM_PREFILL / (pre_ms / 1e3),
+           "decode_ms_per_token": float(np.median(ms[1:])),
+           "decode_ms_first": ms[0], "prefill_err": pre_err,
+           "oracle_prefill_err": oracle_pre_err, "decode_err": dec_err,
+           "decode_err_all": all_err, "route_agreement": share,
+           "router_x_err": routes["x_err"],
+           "router_logit_err": routes["logit_err"],
+           "flipped_rows": len(flips), "flip_gap_over_moved": gap_moved,
+           "flip_moved_over_reach": moved_reach,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, oracle, dec, logits, dlogits, emb, toks
+    free_card()
+    log(f"[lm] {name} at its published widths ({cfg.n_layers} of "
+        f"{get(name).config.n_layers} layers, d_model {cfg.d_model}, "
+        f"{weights / 1e9:.2f} GB of bf16 weights, batch {batch}) on "
+        f"{card}: prefill {LM_PREFILL} tokens {pre_ms:.4g} ms "
+        f"({out['prefill_tokens_per_s']:.4g} tokens/s), decode "
+        f"{out['decode_ms_per_token']:.4g} ms a token (median of steps "
+        f"2-{LM_DECODE}; the first {ms[0]:.4g}), max_memory_allocated "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB; prefill against forward "
+        f"{pre_err:.3g} (< {LM_PREFILL_TOL}), against the "
+        f"{total}-token oracle {oracle_pre_err:.3g}, decode against it "
+        f"{dec_err:.3g} (< {LM_DECODE_TOL}) over the steps' rows whose "
+        f"MoE picks all equal the oracle's ({share:.4g} of them, at least "
+        f"{floor}; every row: {all_err:.3g})")
+    if cfg.moe is not None:
+        log(f"[lm] {name} routing: up to each decode row's first flipped "
+            f"layer the router's input within {routes['x_err']:.3g} and its "
+            f"float32 logits within {routes['logit_err']:.3g} of the "
+            f"oracle's (< {LM_DECODE_TOL}); {len(flips)} rows flipped, each "
+            f"at a k-th/(k+1)-th logit gap within 2 x its logits' drift "
+            f"(largest gap / 2 drift {gap_moved:.3g}), a drift within the "
+            f"input drift's reach (largest drift / reach "
+            f"{moved_reach:.3g}); {routes['bad']} beyond; first flips by "
+            f"layer "
+            f"{dict(sorted(collections.Counter(f['layer'] for f in flips).items()))}")
+    if not finite:
+        raise AssertionError(f"lm {name}: a logit is not finite")
+    if pre_err >= LM_PREFILL_TOL:
+        raise AssertionError(f"lm {name}: prefill {pre_err} against "
+                             f"forward")
+    if share < floor:
+        raise AssertionError(f"lm {name}: MoE picks agree on {share} of the "
+                             f"decode rows")
+    if routes["bad"] or max(routes["x_err"], routes["logit_err"]) \
+            >= LM_DECODE_TOL:
+        raise AssertionError(f"lm {name}: routing {routes}")
+    if max(dec_err, oracle_pre_err) >= LM_DECODE_TOL:
+        raise AssertionError(f"lm {name}: decode {dec_err}, prefill "
+                             f"{oracle_pre_err} against the oracle")
+    return out
+
+
+def lm_train(card: str) -> dict:
+    """Phase 17 (b): phi4-mini at full width, bf16 params and grads,
+    remat per block, the step donating its state; 6 steps on one fixed
+    batch at the largest batch that fits, then the first step repeated
+    from the same seeded state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.lm import init_params, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get(LM_TRAIN).config
+    step = make_train_step(cfg, donate=True)
+
+    def fresh():
+        p = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+        contracted_fan_in(p, cfg)
+        return p, adamw.init(p)
+
+    tried = []
+    for batch in LM_TRAIN_BATCHES:
+        free_card()
+        toks = torch.from_numpy(token_batch(batch, 4097, cfg.vocab,
+                                            seed=23)).to(DEVICE)
+        params = opt = None
+        try:
+            params, opt = fresh()
+            d0 = bits_digest(params)
+            losses, ms, gnorms = [], [], []
+            for s in range(LM_TRAIN_STEPS):
+                (params, opt, m), t = cuda_ms(lambda: step(params, opt,
+                                                           toks))
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                ms.append(t)
+                if s == 0:
+                    d1 = bits_digest((params, opt))
+            break
+        except torch.OutOfMemoryError as e:
+            tried.append((batch, str(e).splitlines()[0]))
+            del params, opt, toks
+            continue
+    else:
+        raise AssertionError(f"lm train: no batch fits: {tried}")
+    peak = torch.cuda.max_memory_allocated()
+    state = _tree_bytes(params) + _tree_bytes(opt)
+    del params, opt
+    free_card()
+    params, opt = fresh()
+    same_init = bits_digest(params) == d0
+    params, opt, _ = step(params, opt, toks)
+    repeat = bits_digest((params, opt)) == d1
+    del params, opt, toks
+    free_card()
+    out = {"batch": batch, "oom": tried, "losses": losses, "ms": ms,
+           "grad_norms": gnorms,
+           "ms_median": float(np.median(ms[1:])), "peak_bytes": peak,
+           "state_bytes": state, "repeat_bit_equal": repeat and same_init,
+           "n_params": cfg.n_params}
+    log(f"[lm] train {LM_TRAIN} at full width ({cfg.n_params / 1e9:.3f} B "
+        f"params, bf16 params and grads, remat per block) on {card}: "
+        f"batch {batch} x 4,096 tokens (out of memory at "
+        f"{[b for b, _ in tried]}); ms a step {out['ms_median']:.5g} (median of steps "
+        f"2-{LM_TRAIN_STEPS}; the first {ms[0]:.5g}), "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB, state (params + mu "
+        f"+ nu, float32 moments) {state / 2**30:.3f} GiB; fixed-batch "
+        f"losses {[float(f'{v:.7g}') for v in losses]} (gradient norms "
+        f"{[float(f'{v:.4g}') for v in gnorms]}); the first step "
+        f"repeated from the same seeded state bit-equal (params and "
+        f"AdamWState, digests of every leaf): {out['repeat_bit_equal']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm train: the loss did not fall: {losses}")
+    if not out["repeat_bit_equal"]:
+        raise AssertionError("lm train: a repeated step differs")
+    return out
+
+
+def gnn_batch(shape, cfg, seed: int) -> dict:
+    """A seeded ``random_graph`` at one of GraphCast's registry shapes,
+    with its padded edges masked, targets, and for ``minibatch_lg`` the
+    seed-node mask."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import random_graph
+
+    n, e, f = (shape.get(k) for k in ("n_nodes", "n_edges", "d_feat"))
+    rng = np.random.default_rng(seed)
+    if shape.get("mode") == "batched":
+        b = shape.batch
+        feats = rng.normal(size=(b, n, f)).astype(np.float32)
+        src = rng.integers(0, n, size=(b, e)).astype(np.int32)
+        dst = rng.integers(0, n, size=(b, e)).astype(np.int32)
+        tgt = rng.normal(size=(b, n, cfg.n_vars)).astype(np.float32)
+        arrays = {"node_feats": feats, "src": src, "dst": dst,
+                  "targets": tgt}
+    else:
+        real = min({"full_graph_sm": 10556}.get(shape.name, e), e)
+        src, dst, feats = random_graph(n, real, f, seed=seed)
+        pad = e - real
+        arrays = {"node_feats": feats,
+                  "src": np.pad(src, (0, pad)), "dst": np.pad(dst, (0, pad)),
+                  "edge_mask": np.arange(e) < real,
+                  "targets": rng.normal(size=(n, cfg.n_vars)).astype(
+                      np.float32)}
+        if shape.get("mode") == "sampled":
+            mask = np.zeros(n, bool)
+            mask[rng.choice(n, GNN_SEEDS, replace=False)] = True
+            arrays["node_mask"] = mask
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEVICE)
+            for k, v in arrays.items()}
+
+
+def gnn_train(card: str) -> dict:
+    """Phase 17 (c): GraphCast at full width on three registry shapes (6
+    steps on a fixed batch each; the full_graph_sm step repeated from one
+    state bit-equal), then ogb_products' forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models.gnn import forward, init_params, make_train_step
+    from repro_torch.optim import adamw
+
+    arch = get("graphcast")
+    cfg = arch.config
+    out = {}
+    for name in GNN_SHAPES:
+        shape = arch.shapes[name]
+        free_card()
+        batch = gnn_batch(shape, cfg, seed=31)
+        params = init_params(cfg, shape.get("d_feat"),
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             DEVICE)
+        opt = adamw.init(params)
+        step = make_train_step(cfg, batched=shape.get("mode") == "batched")
+        if name == "full_graph_sm":
+            x = step(params, opt, batch)[:2]
+            y = step(params, opt, batch)[:2]
+            out["repeat_bit_equal"] = _same_bits(x, y)
+            del x, y
+        losses, ms = [], []
+        for _ in range(LM_TRAIN_STEPS):
+            (params, opt, m), t = cuda_ms(lambda: step(params, opt, batch))
+            losses.append(float(m["loss"]))
+            ms.append(t)
+        out[name] = {"losses": losses, "ms": ms,
+                     "ms_median": float(np.median(ms[1:])),
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "edges": int(batch["src"].numel())}
+        log(f"[gnn] graphcast {name} (16 layers, d_hidden 512, n_vars 227, "
+            f"float32; {shape.get('n_nodes')} nodes"
+            f"{' x ' + str(shape.batch) if shape.batch > 1 else ''}, "
+            f"{out[name]['edges']} edges, d_feat {shape.get('d_feat')}) on "
+            f"{card}: ms a step {out[name]['ms_median']:.4g} (median of "
+            f"steps 2-{LM_TRAIN_STEPS}; the first {ms[0]:.4g}), "
+            f"max_memory_allocated "
+            f"{out[name]['peak_bytes'] / 2**30:.3f} GiB, losses "
+            f"{[float(f'{v:.6g}') for v in losses]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"gnn {name}: the loss did not fall")
+        del params, opt, batch
+    log(f"[gnn] full_graph_sm: one step repeated from one state bit-equal "
+        f"(params and AdamWState): {out['repeat_bit_equal']}")
+    if not out["repeat_bit_equal"]:
+        raise AssertionError("gnn: a repeated step differs")
+    shape = arch.shapes["ogb_products"]
+    free_card()
+    n, f = shape.get("n_nodes"), shape.get("d_feat")
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(37)
+    feats = torch.randn((n, f), generator=g, device=DEVICE)
+    src = torch.randint(0, n, (OGB_EDGES,), generator=g, device=DEVICE)
+    dst = torch.randint(0, n, (OGB_EDGES,), generator=g, device=DEVICE)
+    params = init_params(cfg, f, torch.Generator(device=DEVICE).manual_seed(
+        0), DEVICE)
+    make_s = time.perf_counter() - t0
+    with torch.no_grad():
+        pred, ms = cuda_ms(lambda: forward(params, feats, src, dst, cfg))
+    ok = bool(torch.isfinite(pred).all()) and pred.shape == (n, cfg.n_vars)
+    out["ogb_products"] = {"ms": ms, "edges": OGB_EDGES, "make_s": make_s,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del pred, feats, src, dst, params
+    free_card()
+    log(f"[gnn] ogb_products forward only ({n} nodes, d_feat {f}, "
+        f"{OGB_EDGES} edges of 61,859,140, cut) on {card}: {ms:.5g} ms, "
+        f"max_memory_allocated "
+        f"{out['ogb_products']['peak_bytes'] / 2**30:.3f} GiB, predictions "
+        f"finite: {ok}")
+    if not ok:
+        raise AssertionError("gnn ogb_products: bad predictions")
+    return out
+
+
+def adamw_step_gap(mu_a, nu_a, mu_b, nu_b, cfg) -> "torch.Tensor":
+    """lr * |u_a - u_b| elementwise, u = mhat / (sqrt(vhat) + eps) of
+    AdamW's first step from moments a and b (tests/_torch_port.py's
+    ``adamw_step_gap``): where |g| is near eps the update g / (|g| + eps)
+    magnifies the two gradients' difference by up to 1 / (4 eps)."""
+    import torch
+
+    u = lambda m, v: (m.double() / (1 - cfg.b1)) / (
+        torch.sqrt(v.double() / (1 - cfg.b2)) + cfg.eps)
+    return cfg.lr * (u(mu_a, nu_a) - u(mu_b, nu_b)).abs()
+
+
+def lm_gnn_parity() -> dict:
+    """Phase 17 (d): one step of each LM arch at ``scaled_lm_config(.,
+    0.02)`` and of GraphCast at 4 x 64 on the card against the same step
+    on the CPU, from the same params and batch.  The LM params are drawn
+    on the CPU and rescaled by ``contracted_fan_in`` (tests/test_torch_lm.py
+    holds the port to the reference on the same rescale); the loss and the
+    gradient norm agree within rtol 1e-5, the moments within 1e-5 of the
+    largest, and every parameter within STEP_PARAM_ATOL beyond
+    ``adamw_step_gap``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import random_graph, token_batch
+    from repro_torch.distributed.collectives import tree_flatten, tree_map
+    from repro_torch.launch.train import scaled_lm_config
+    from repro_torch.models import gnn, lm
+    from repro_torch.optim import adamw
+
+    cuda = lambda t: t.to(DEVICE)
+    opt = adamw.AdamWConfig()
+    out = {}
+    for name, _, _ in LM_SERVE:
+        cfg = scaled_lm_config(get(name).config, 0.02)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+        contracted_fan_in(params, cfg)
+        toks = torch.from_numpy(token_batch(2, 33, cfg.vocab, seed=5))
+        step = lm.make_train_step(cfg)
+        wp, wo, wm = step(params, adamw.init(params), toks)
+        cp = tree_map(cuda, params)
+        gp, go, gm = step(cp, adamw.init(cp), cuda(toks))
+        np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                                   rtol=LM_PARITY_TOL,
+                                   err_msg=f"parity {name}")
+        np.testing.assert_allclose(float(gm["grad_norm"]),
+                                   float(wm["grad_norm"]),
+                                   rtol=LM_PARITY_TOL,
+                                   err_msg=f"parity {name}")
+        leaves = lambda tree: [t.cpu() for t in tree_flatten(tree)[0]]
+        g_mu, g_nu, w_mu, w_nu = (leaves(t) for t in (go.mu, go.nu, wo.mu,
+                                                       wo.nu))
+        rec = {"loss": float(gm["loss"])}
+        for what, got_m, want_m in (("mu_rel", g_mu, w_mu),
+                                    ("nu_rel", g_nu, w_nu)):
+            scale = max(float(w.abs().max()) for w in want_m)
+            rec[what] = max(float((g - w).abs().max())
+                            for g, w in zip(got_m, want_m)) / scale
+        err = excess = 0.0
+        for g, w, gmu, gnu, wmu, wnu in zip(leaves(gp), leaves(wp), g_mu,
+                                            g_nu, w_mu, w_nu):
+            d = (g - w).abs().double()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - adamw_step_gap(
+                gmu, gnu, wmu, wnu, opt)).max()))
+        rec.update(max_abs_err=err, max_excess=excess)
+        out[name] = rec
+        if max(rec["mu_rel"], rec["nu_rel"]) > LM_PARITY_TOL \
+                or excess > STEP_PARAM_ATOL:
+            raise AssertionError(f"parity {name}: {rec}")
+    cfg = dataclasses.replace(get("graphcast").config, n_layers=4,
+                              d_hidden=64)
+    src, dst, feats = random_graph(512, 2048, 32, seed=0)
+    tgt = np.random.default_rng(1).normal(size=(512, cfg.n_vars)).astype(
+        np.float32)
+    b = {k: torch.from_numpy(v) for k, v in (
+        ("node_feats", feats), ("src", src), ("dst", dst), ("targets", tgt))}
+    params = gnn.init_params(cfg, 32, torch.Generator().manual_seed(5), "cpu")
+    step = gnn.make_train_step(cfg)
+    wp, wo, wm = step(params, adamw.init(params), b)
+    cp = tree_map(cuda, params)
+    gp, go, gm = step(cp, adamw.init(cp), tree_map(cuda, b))
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-5, err_msg="parity graphcast")
+    err = 0.0
+    for got, want in ((gp, wp), (go.mu, wo.mu), (go.nu, wo.nu)):
+        for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+            g = g.cpu().numpy()
+            np.testing.assert_allclose(g, w.numpy(), rtol=0,
+                                       atol=STEP_PARAM_ATOL,
+                                       err_msg="parity graphcast")
+            err = max(err, float(np.abs(g - w.numpy()).max()))
+    out["graphcast"] = {"loss": float(gm["loss"]), "max_abs_err": err}
+    log(f"[lm] one step card against CPU (scaled 0.02 with the contracted "
+        f"fan-in, float32; GraphCast 4 x 64): loss and gradient norm within "
+        f"rtol {LM_PARITY_TOL}, moments within {LM_PARITY_TOL} of the "
+        f"largest, params within {STEP_PARAM_ATOL} beyond adamw_step_gap "
+        f"(GraphCast: params and moments within atol {STEP_PARAM_ATOL}): "
+        f"{ {k: {kk: float(f'{vv:.3g}') for kk, vv in v.items()} for k, v in out.items()} }")
+    return out
+
+
+def lm_cli(work: str, card: str) -> dict:
+    """Phase 17 (d): the training CLI in subprocesses: qwen2-moe's
+    --fail-at 12 run, its relaunch (which must resume from step 10 and
+    write a step-20 checkpoint byte-equal to an uninterrupted run's),
+    phi4-mini with --accum 2 (finite losses) and GraphCast (6 steps).  The
+    runs that do not wait on another start together."""
+    import filecmp
+    import re
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+            DEVICE]
+    wa, wb = os.path.join(work, "lm-a"), os.path.join(work, "lm-b")
+    moe = ["--arch", "qwen2_moe", "--steps", "20", "--ckpt-every", "5"]
+    runs = {"fail": moe + ["--fail-at", "12", "--workdir", wa],
+            "straight": moe + ["--workdir", wb],
+            "accum": ["--arch", "phi4_mini", "--accum", "2", "--steps", "4",
+                      "--workdir", os.path.join(work, "lm-c")],
+            "gnn": ["--arch", "graphcast", "--steps", "6", "--workdir",
+                    os.path.join(work, "lm-d")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(base + v, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, v in runs.items()}
+    done = {}
+    try:
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=TRAIN_CLI_TIMEOUT_S)
+            done[k] = (p.returncode, o, e)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + moe + ["--workdir", wa], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=TRAIN_CLI_TIMEOUT_S)
+    done["resume"] = (proc.returncode, proc.stdout, proc.stderr)
+    resume_s = time.perf_counter() - t0
+    rc, _, err = done["fail"]
+    if rc == 0 or "simulated node failure at step 12" not in err:
+        raise AssertionError(f"lm CLI --fail-at 12 exited {rc}:\n"
+                             f"{err[-2000:]}")
+    for k in ("straight", "resume", "accum", "gnn"):
+        if done[k][0] != 0:
+            raise AssertionError(f"lm CLI ({k}) exited {done[k][0]}:\n"
+                                 f"{done[k][2][-3000:]}")
+    if "resumed from step 10 (cursor=10)" not in done["resume"][1]:
+        raise AssertionError("lm CLI: no resume line")
+    a = os.path.join(wa, "ckpt", "step_00000020")
+    b = os.path.join(wb, "ckpt", "step_00000020")
+    names = sorted(os.listdir(b))
+    same, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    if mismatch or errors or sorted(os.listdir(a)) != names:
+        raise AssertionError(f"lm CLI: the resumed qwen2-moe checkpoint "
+                             f"differs in {mismatch + errors}")
+    losses = {k: [float(v) for v in re.findall(r"loss=([-\d.naif]+)",
+                                               done[k][1])]
+              for k in ("accum", "gnn")}
+    import math
+
+    if not losses["accum"] or not all(math.isfinite(v)
+                                      for v in losses["accum"]):
+        raise AssertionError(f"lm CLI --accum 2: losses {losses['accum']}")
+    for k in ("resume", "accum", "gnn"):
+        for line in done[k][1].splitlines():
+            log(f"[lm-cli] {k}: {line}")
+    log(f"[lm-cli] on {card}: qwen2_moe --fail-at 12 exited {rc}; the "
+        f"relaunch resumed from step 10 ({resume_s:.1f} s); its step-20 "
+        f"checkpoint, {len(same)} files, byte-equal to an uninterrupted "
+        f"run's; phi4_mini --accum 2 losses {losses['accum']}; graphcast "
+        f"losses {losses['gnn']} (the first four runs together "
+        f"{first_s:.1f} s)")
+    return {"files": len(same), "losses": losses, "resume_s": resume_s,
+            "first_s": first_s}
+
+
+def combine_determinism() -> dict:
+    """For the MoE combine (each token's K expert outputs added into its
+    row) at qwen2-moe's prefill shape, whether two runs on the card give
+    the same bits: the port's inverse permutation and ordered sum, and
+    the two scatter-adds (``index_add_``, ``index_put_(accumulate=True)``);
+    the same for ``segment_sum``'s ``index_put_`` at minibatch_lg's
+    edges."""
+    import torch
+
+    from repro_torch.models.gnn.graphcast import segment_sum
+
+    g = torch.Generator(device=DEVICE).manual_seed(41)
+    t, k, d = 2 * LM_PREFILL, 4, 2048
+    contrib = torch.randn((t * k, d), generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    order = torch.randperm(t * k, generator=g, device=DEVICE)
+    token_of = order // k
+
+    def permuted():
+        where = torch.empty_like(order)
+        where[order] = torch.arange(t * k, device=DEVICE)
+        pos = torch.sort(where.view(t, k), dim=1).values
+        per = contrib[pos]
+        out = torch.zeros((t, d), dtype=contrib.dtype, device=DEVICE)
+        for j in range(k):
+            out = out + per[:, j]
+        return out
+
+    ways = {"inverse permutation + ordered sum": permuted,
+            "index_add_": lambda: torch.zeros(
+                (t, d), dtype=contrib.dtype, device=DEVICE).index_add_(
+                0, token_of, contrib),
+            "index_put_(accumulate=True)": lambda: torch.zeros(
+                (t, d), dtype=contrib.dtype, device=DEVICE).index_put_(
+                (token_of,), contrib, accumulate=True)}
+    out = {}
+    for name, fn in ways.items():
+        a, b = fn(), fn()
+        out[name] = bool(torch.equal(a.view(torch.int16),
+                                     b.view(torch.int16)))
+    m = torch.randn((179200, 512), generator=g, device=DEVICE)
+    dst = torch.randint(0, 184320, (179200,), generator=g, device=DEVICE)
+    a, b = segment_sum(m, dst, 184320), segment_sum(m, dst, 184320)
+    out["segment_sum"] = bool(torch.equal(a.view(torch.int32),
+                                          b.view(torch.int32)))
+    return out
+
+
+def phase_lm(work: str, card: str) -> dict:
+    """Phase 17: the LM and GNN families (module doc)."""
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    t0 = time.perf_counter()
+    LAUNCHES.reset()
+    out = {"serve": {}}
+    for name, batch, layers in LM_SERVE:
+        try:
+            out["serve"][name] = lm_serve(name, batch, layers, card)
+        except Exception as e:  # noqa: BLE001 — only an OOM is retried
+            import torch
+
+            if not isinstance(e, torch.OutOfMemoryError) or batch == 1:
+                raise
+            log(f"[lm] {name}: batch {batch} does not fit ({e}); batch 1")
+            free_card()
+            out["serve"][name] = lm_serve(name, 1, layers, card)
+    out["train"] = lm_train(card)
+    out["gnn"] = gnn_train(card)
+    out["parity"] = lm_gnn_parity()
+    out["cli"] = lm_cli(work, card)
+    out["determinism"] = combine_determinism()
+    log(f"[lm] two runs on the card bit-equal: {out['determinism']}")
+    for way in ("inverse permutation + ordered sum", "segment_sum"):
+        if not out["determinism"][way]:
+            raise AssertionError(f"{way} is not deterministic on the card")
+    launches = path_launches("LM and GNN families (phase 17)")
+    if any(launches.values()):
+        raise AssertionError(f"phase 17 launched a kernel of the library: "
+                             f"{launches}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[lm] phase 17 {out['seconds']:.1f} s; kernel launches "
+        f"{launches} (no kernel of the library on this path)")
     return out
 
 
@@ -4584,6 +5625,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = phase_device()
+    CARD[0] = dev["card"]
     kernel_errs = phase_kernels()
     work = os.path.join(ROOT, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -4604,6 +5646,7 @@ def main() -> int:
         phase_cli(work)
         phase_mesh(work, built, served, resident)
         phase_train(work, dev["card"])
+        phase_lm(work, dev["card"])
         rows = phase_times(built, served, kernel_errs, resident, streamed)
     finally:
         if served is not None:

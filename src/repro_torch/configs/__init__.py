@@ -2,20 +2,16 @@
 archs + the paper's own Helmsman config.
 
 Each ``configs/<id>.py`` exports ``ARCH`` (an :class:`ArchDef`);
-``get(name)`` and ``all_archs()`` are consumed by ``launch/train.py``.  The
-recsys archs and Helmsman are ported; ``get`` of an LM or GNN arch raises
-``NotImplementedError`` (their model families are ROADMAP item 3).
+``get(name)`` and ``all_archs()`` are consumed by ``launch/train.py`` and
+``chip_smoke.py``.  Cell construction (abstract inputs, step function and
+shardings per arch x shape x mesh) is ``launch/cells.py`` in the reference
+and not ported yet (ROADMAP item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any, Dict
-
-LM_GNN = ("gemma3_12b", "phi4_mini", "gemma3_27b", "llama4_scout",
-          "qwen2_moe", "graphcast")
-NOT_PORTED = ("the LM and GNN families are not ported yet (ROADMAP item "
-              "3): {name!r} has no torch config")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,15 +48,12 @@ ARCH_NAMES = [
 
 
 def get(name: str) -> ArchDef:
-    if name in LM_GNN:
-        raise NotImplementedError(NOT_PORTED.format(name=name))
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.ARCH
 
 
 def all_archs(include_extra: bool = True):
-    """Every arch of the registry, as the reference lists them (raises
-    while the LM and GNN families are not ported)."""
+    """Every arch of the registry, as the reference lists them."""
     names = ARCH_NAMES if include_extra else ARCH_NAMES[:-1]
     return [get(n) for n in names]
 

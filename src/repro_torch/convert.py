@@ -80,15 +80,28 @@ def llsp_from_reference(params, *, device: DeviceLike = None
                        np.asarray(params.levels), device=device)
 
 
+# dtypes numpy lacks, as the reference's arrays carry them (``ml_dtypes``):
+# read through an integer view of the same width
+_RAW = {"bfloat16": (np.int16, torch.bfloat16)}
+
+
+def _leaf(a, dev: torch.device) -> torch.Tensor:
+    arr = np.array(a, order="C")                    # owned, writable copy
+    raw = _RAW.get(arr.dtype.name)
+    if raw is None:
+        return torch.from_numpy(arr).to(dev)
+    return torch.from_numpy(arr.view(raw[0])).view(raw[1]).to(dev)
+
+
 def params_tree(tree, *, device: DeviceLike = None):
     """A tree of tensors on ``device`` from a tree of arrays (a model's
     parameters from the reference: nested dicts, lists and tuples of
-    ``np.asarray`` leaves); each leaf keeps its dtype."""
+    ``np.asarray`` leaves); each leaf keeps its dtype, bfloat16 included
+    (an ``ml_dtypes`` array read through its ``int16`` view)."""
     from repro_torch.distributed.collectives import tree_map
 
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, order="C"))
-                    .to(dev), tree)
+    return tree_map(lambda a: _leaf(a, dev), tree)
 
 
 def adamw_state(step, mu, nu, *, device: DeviceLike = None):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .distance import INF, dedup_topk, squared_l2_chunked, topk_smallest
+from .postings import posting_layout
 
 
 @dataclasses.dataclass
@@ -66,26 +67,11 @@ def build_postings(x: np.ndarray, assign: np.ndarray, n_clusters: int,
     index order within a column; clusters larger than ``cluster_len`` keep
     their first ``cluster_len`` members, smaller ones pad the payload with
     their last member and id -1.  Same arrays as the reference's loop,
-    computed with one stable sort.
+    computed with one stable sort (``core/postings.py``).
     """
-    n, r = assign.shape
-    d = x.shape[1]
-    cl = assign.T.reshape(-1)                       # column-major order
-    pts = np.tile(np.arange(n), r)
-    keep = cl >= 0
-    cl, pts = cl[keep], pts[keep]
-    order = np.argsort(cl, kind="stable")
-    cl, pts = cl[order], pts[order]
-    starts = np.searchsorted(cl, np.arange(n_clusters))
-    rank = np.arange(cl.size) - starts[cl]
-    take = rank < cluster_len
-    postings = np.zeros((n_clusters, cluster_len, d), dtype=np.float32)
-    ids = np.full((n_clusters, cluster_len), -1, dtype=np.int32)
-    postings[cl[take], rank[take]] = x[pts[take]]
-    ids[cl[take], rank[take]] = pts[take]
-    fill = np.minimum(np.bincount(cl, minlength=n_clusters), cluster_len)
-    for c in np.nonzero((fill > 0) & (fill < cluster_len))[0]:
-        postings[c, fill[c]:] = postings[c, fill[c] - 1]
+    src, ids = posting_layout(assign, n_clusters, cluster_len)
+    postings = x[np.maximum(src, 0)]
+    postings[src < 0] = 0.0
     return postings, ids
 
 

@@ -14,7 +14,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``None`` means the CUDA card, and raises when there is none: the entry
     points never drop to the CPU on their own; a caller that wants the
     plain versions on the CPU passes ``device="cpu"``.  On CUDA, TF32 is
-    switched off for matrix products and cuDNN, so float32 stays float32.
+    switched off for matrix products and cuDNN, so float32 stays float32,
+    and bf16 products accumulate in float32 to the end (no reduced
+    precision split-K reduction), as XLA's do.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -28,6 +30,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"device {dev} requested but CUDA is absent")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev

@@ -33,7 +33,8 @@ fabric, scaled down to S simulated shard engines in one process:
   retired through a per-shard :class:`~repro_torch.lifecycle.version.Epoch`
   (released only after its last outstanding task resolves);
 * hot-shard load uses power-of-two-choices routing across live replicas,
-  stragglers get deadline-aware hedged re-dispatch, flaky shards get
+  stragglers get deadline-aware hedged re-dispatch onto a less loaded
+  replica, flaky shards get
   checksum-verified replies with a bounded per-task retry budget, and a
   cluster with no live replica degrades the touching queries to a
   ``partial`` response instead of erroring the batch.
@@ -44,6 +45,7 @@ drill is replayable bit-for-bit.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -67,6 +69,10 @@ from repro_torch.runtime.pipeline import (
 )
 from repro_torch.storage.host_tier import TieredPostings
 from repro_torch.storage.layout import make_replica_map, plan_striping
+
+
+HEDGE_WINDOW = 256      # task latencies the hedge threshold is taken over
+HEDGE_MIN_SEEN = 32     # ... and how many it needs before it counts
 
 
 @dataclasses.dataclass
@@ -407,6 +413,10 @@ class ShardedFabric:
         self._h_task = m.histogram("fabric.task_service_s")
         self.n_shards = int(n_shards)
         self.hedge_after_s = hedge_after_s
+        # the latencies (submit -> reply) of the last tasks answered: the
+        # hedge threshold is at least their 95th percentile
+        self._latencies: collections.deque = collections.deque(
+            maxlen=HEDGE_WINDOW)
         self.retry_budget = int(retry_budget)
         self.harvest_timeout_s = harvest_timeout_s
         self.tick_s = tick_s
@@ -736,6 +746,7 @@ class ShardedFabric:
                                   rec.task.attempt + 1, cause="checksum")
                     continue
                 self._h_task.observe(reply.service_s)
+                self._latencies.append(self.clock() - rec.sent_at)
                 fresh = rec.state.resolve(rec.task.cids.tolist())
                 if fresh:
                     rec.state.cand.append((reply.cand_d, reply.cand_i))
@@ -745,13 +756,26 @@ class ShardedFabric:
         """Deadline-aware hedged re-dispatch: an outstanding task older than
         the hedge threshold (or whose batch deadline is at risk) gets its
         unresolved clusters duplicated onto alternate live replicas; the
-        first reply to land resolves the clusters, the loser is ignored."""
+        first reply to land resolves the clusters, the loser is ignored.
+
+        Unlike the reference, the threshold is at least the 95th percentile
+        of the last ``HEDGE_WINDOW`` task latencies once ``HEDGE_MIN_SEEN``
+        have been seen, a hedge goes only to a replica with fewer
+        outstanding tasks than the straggler's shard, and a hedge is never
+        hedged again.  Under a closed loop every task waits in a queue
+        longer than ``hedge_after_s``: the reference's rule then copies a
+        large share of the tasks onto shards as loaded as their own, and
+        the copies pile onto one replica pair until batches wait past the
+        give-up."""
         now = self.clock()
         thresh = self.hedge_after_s
+        if len(self._latencies) >= HEDGE_MIN_SEEN:
+            thresh = max(thresh, float(np.percentile(self._latencies, 95)))
         if state.deadline is not None:
             thresh = min(thresh, max((state.deadline - now) * 0.5, 0.01))
         for tid, rec in list(self._outstanding.items()):
-            if rec.state is not state or rec.hedged:
+            if rec.state is not state or rec.hedged \
+                    or rec.task.kind == "hedge":
                 continue
             if now - rec.sent_at < thresh:
                 continue
@@ -759,10 +783,11 @@ class ShardedFabric:
             if not todo:
                 continue
             by_shard: dict[int, list[int]] = {}
+            slow = rec.task.shard
             for c in todo:
                 alts = [int(r) for r in self.live_replicas[c]
-                        if r >= 0 and r != rec.task.shard
-                        and r not in self.failed]
+                        if r >= 0 and r != slow and r not in self.failed
+                        and self._out_per_shard[r] < self._out_per_shard[slow]]
                 if alts:
                     by_shard.setdefault(alts[0], []).append(c)
             if not by_shard:

@@ -1,11 +1,17 @@
-"""Sharding rules of the ANNS layout and the recsys tables (port of the
-ANNS and recsys parts of ``repro.distributed.sharding``).
+"""Sharding rules per architecture family (port of
+``repro.distributed.sharding``).
 
 Mesh axes (``launch/mesh.py``): single pod ``(data=16, model=16)``;
 multi-pod ``(pod=2, data=16, model=16)``.  ``pod`` composes with ``data``
-as an outer batch axis.  ANNS: queries over (pod, data); posting clusters
-over ``model``; centroids and LLSP replicated.  Recsys: embedding tables
-row-sharded over ``model``.
+as an outer batch axis.
+* LM: batch over (pod, data); Megatron TP over ``model`` (attention heads
+  and d_ff columns, row-parallel second products, vocab on the
+  embedding); MoE experts over ``model`` (EP).  Decode: batch over (pod,
+  data); KV heads over ``model`` when divisible, else the sequence.
+* GNN: edges over (pod, data), the hidden dim over ``model``.
+* Recsys: embedding tables row-sharded over ``model``.
+* ANNS: queries over (pod, data); posting clusters over ``model``;
+  centroids and LLSP replicated.
 
 A :class:`P` names, for each leading dimension of an array, the mesh axes
 it is split over: ``None`` (whole), one axis name, or a tuple of names
@@ -60,6 +66,56 @@ def anns_specs(mesh) -> dict:
 
 def recsys_table_spec() -> P:
     return P("model", None)          # rows over model: the EmbeddingBag path
+
+
+def lm_param_specs(params_tree, mesh=None):
+    """Megatron-style TP rules applied by leaf path name (the reference's
+    rules, in its order):
+
+    * MoE expert leaves (a ``moe`` path, rank >= 3) -> experts over model
+    * ``wq/wk/wv`` -> P(None, "model", None); ``wo`` -> P("model", ...)
+    * ``w_gate/w_up`` -> P(None, "model"); ``w_down`` -> P("model", None)
+    * ``embed`` -> P("model", None); the router, norms and the rest
+      replicated."""
+    from .collectives import tree_flatten, tree_flatten_with_path, \
+        tree_unflatten
+
+    def spec_for(path: str, x) -> P:
+        nd = x.dim()
+        if "moe" in path and nd >= 3:
+            return P("model", *([None] * (nd - 1)))          # EP
+        if any(k in path for k in ("wq", "wk", "wv")):
+            return P(None, "model", None)
+        if "wo" in path:
+            return P("model", None, None)
+        if any(k in path for k in ("w_gate", "w_up")):
+            return P(None, "model")
+        if "w_down" in path:
+            return P("model", None)
+        if "embed" in path:
+            return P("model", None)
+        return P()
+
+    specs = [spec_for("/".join(str(k) for k in path).lower(), leaf)
+             for path, leaf in tree_flatten_with_path(params_tree)]
+    return tree_unflatten(tree_flatten(params_tree)[1], specs)
+
+
+def lm_kv_cache_spec(mesh, kv_heads: int, *, seq_split: bool = False) -> P:
+    """KV cache (B, S, Hkv, Dh): heads over model if divisible, else the
+    sequence split (the split-KV decode path)."""
+    tp = mesh.shape["model"]
+    if not seq_split and kv_heads % tp == 0:
+        return P(batch_axes(mesh), None, "model", None)
+    return P(batch_axes(mesh), "model", None, None)
+
+
+def gnn_specs(mesh) -> dict:
+    return {
+        "edges": data_spec(mesh, None),
+        "node_feats": P(None, "model"),
+        "hidden": P(None, "model"),
+    }
 
 
 def _axes(entry) -> tuple:

@@ -35,6 +35,20 @@ Jobs (``kind``):
   gathered outputs to ``lookup.npy``, ``bag.npy`` and
   ``<arch>_logits.npy`` in ``work``.
 
+* ``moe``: expert parallelism.  The parameters are ``torch.save``'d under
+  ``<work>/<params>.pt`` (a whole LM tree, or one layer's tree when
+  ``layer`` is set) and each rank keeps its experts (and with
+  ``cfg.fsdp`` its ``data`` block of d_ff, ``moe_param_specs``); with
+  ``layer``, ``moe_ffn`` on the rank's batch block of ``<work>/x.npy``,
+  else ``forward(mesh=...)`` on its block of ``<work>/tokens.npy``, in
+  ``dtype`` (default: the config's).  Rank 0 writes the gathered output,
+  as float32, to ``<work>/<out>.npy``;
+* ``gnn_rowdp``: GraphCast's ``forward_rowdp`` from the parameters in
+  ``<work>/<params>.pt`` on the rank's rows of ``node_feats.npy`` and its
+  block of the dst-sorted ``src.npy``/``dst.npy`` (and ``edge_mask.npy``
+  where it exists), over all mesh axes flattened; rank 0 writes the
+  gathered predictions to ``<work>/<out>.npy``.
+
 A job's ``kind`` may also be a function ``f(mesh, job)`` at the top level of
 a module of this package (``repro_torch.testing`` holds the ones that
 check the launcher itself).
@@ -44,6 +58,7 @@ Every result carries the rank's kernel launch counts of the job
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -273,8 +288,6 @@ def _cut(params: dict, specs: dict, fn) -> dict:
 
 
 def recsys(mesh: Mesh, job: dict) -> dict:
-    import dataclasses
-
     from repro_torch import ckpt
     from repro_torch.configs import get
     from repro_torch.distributed.collectives import tree_map
@@ -329,5 +342,86 @@ def recsys(mesh: Mesh, job: dict) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# the LM's expert parallelism and GraphCast's row-sharded forward
+# --------------------------------------------------------------------------
+def _rank_experts(tree: dict, cfg, mesh: Mesh, n_lead: int) -> dict:
+    """This rank's block of every MoE expert leaf of ``tree`` (one layer's
+    params or a whole LM tree), by ``moe_param_specs``; the rest whole."""
+    from repro_torch.distributed.sharding import shard_local
+    from repro_torch.models.lm.moe import moe_param_specs
+
+    specs = moe_param_specs(cfg.moe, cfg.fsdp, n_lead)
+    return {k: (_rank_experts(v, cfg, mesh, 2 if k == "layers" else 1)
+                if isinstance(v, dict)
+                else shard_local(v, specs[k], mesh) if k.startswith("moe_")
+                and k != "moe_router" else v)
+            for k, v in tree.items()}
+
+
+def _gathered(mesh: Mesh, job: dict, full: torch.Tensor, secs: float
+              ) -> dict:
+    """The rank's result; rank 0 also writes the gathered output to
+    ``<work>/<out>.npy``."""
+    if mesh.rank == 0:
+        np.save(os.path.join(job["work"], f"{job['out']}.npy"),
+                full.cpu().numpy())
+    return {"rank": mesh.rank, "seconds": secs,
+            "launches": LAUNCHES.snapshot(),
+            "host_staged": mesh.host_staged}
+
+
+def moe(mesh: Mesh, job: dict) -> dict:
+    from repro_torch.distributed.collectives import tree_map
+    from repro_torch.distributed.sharding import P, batch_axes, \
+        gather_axes
+    from repro_torch.models.lm import forward
+    from repro_torch.models.lm.moe import moe_ffn
+
+    work, dev, base = job["work"], mesh.device, job["cfg"]
+    dtype = job.get("dtype", base.dtype)
+    cfg = dataclasses.replace(base, dtype=dtype)
+    axes = batch_axes(mesh)
+    tree = torch.load(os.path.join(work, f"{job['params']}.pt"), mmap=True)
+    layer = job.get("layer", False)
+    tree = _rank_experts(tree, cfg, mesh, 0 if layer else 2)
+    # a copy in another dtype (the float32 check) casts every leaf
+    move = (lambda t: t.to(dev)) if dtype == base.dtype \
+        else (lambda t: t.to(dev, dtype))
+    params = tree_map(lambda t: move(t.contiguous()), tree)
+    name = "x" if layer else "tokens"
+    inp = _block(work, name, P(axes), mesh)
+    if layer:
+        inp = inp.to(dtype)
+    LAUNCHES.reset()
+    with torch.no_grad():
+        if layer:
+            out, secs = _timed(mesh, lambda: moe_ffn(inp, params, cfg.moe,
+                                                     mesh, cfg.fsdp))
+        else:
+            out, secs = _timed(mesh, lambda: forward(params, inp, cfg,
+                                                     mesh))
+    return _gathered(mesh, job, gather_axes(out.float(), mesh, axes), secs)
+
+
+def gnn_rowdp(mesh: Mesh, job: dict) -> dict:
+    from repro_torch.distributed.collectives import tree_map
+    from repro_torch.distributed.sharding import P, gather_axes
+    from repro_torch.models.gnn.graphcast import forward_rowdp
+
+    work, dev, cfg = job["work"], mesh.device, job["cfg"]
+    axes = tuple(mesh.axis_names)
+    params = tree_map(lambda t: t.to(dev), torch.load(
+        os.path.join(work, f"{job['params']}.pt")))
+    feats, src, dst = (_block(work, n, P(axes), mesh)
+                       for n in ("node_feats", "src", "dst"))
+    emask = _block(work, "edge_mask", P(axes), mesh) \
+        if os.path.exists(os.path.join(work, "edge_mask.npy")) else None
+    LAUNCHES.reset()
+    out, secs = _timed(mesh, lambda: forward_rowdp(params, feats, src, dst,
+                                                   cfg, mesh, emask))
+    return _gathered(mesh, job, gather_axes(out, mesh, axes), secs)
+
+
 _KINDS = {"serve": serve, "kmeans": kmeans, "collectives": collectives,
-          "recsys": recsys}
+          "recsys": recsys, "moe": moe, "gnn_rowdp": gnn_rowdp}

@@ -29,8 +29,10 @@ fold the delta and drop tombstones, *while serving*).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import threading
 import time
@@ -40,7 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.build.stream import ShardAssignPipeline, plan_delta_shards
-from repro_torch.core.ivf import IVFIndex, build_postings
+from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.postings import delta_layout
 from repro_torch.device import DeviceLike, resolve_device
 
 from .ingest import LiveFreshState, UpdateLane
@@ -123,6 +126,14 @@ class CorpusStore:
         return lo, hi
 
 
+def _in_child(fn, *args):
+    """``fn(*args)`` in a fresh process started by ``spawn`` (``fn`` and its
+    module must import without torch's state: ``core/postings.py``)."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        return pool.apply(fn, args)
+
+
 def _chunks(n: int, per_task: int) -> list[tuple[int, int]]:
     return [(s, min(s + per_task, n)) for s in range(0, n, per_task)]
 
@@ -166,8 +177,10 @@ def delta_build(
     full restream (the A/B baseline for the I/O-cut counters).  Tombstoned
     rows are masked out of the posting build (the fold that drops deletes),
     but the corpus keeps its rows so shard hashes stay stable.  The stats
-    add ``postings_s``, the seconds of the checkpoint reads and
-    ``build_postings``, to the reference's keys.
+    add ``postings_s``, the seconds from the checkpoint reads to the
+    postings on ``device``, ``assign_load_s`` and ``layout_s``, those of
+    the reads and of the layout (``core/postings.py``, in a child process
+    started by ``spawn``), to the reference's keys.
     """
     dev = resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -188,20 +201,22 @@ def delta_build(
     finally:
         pipe.close()
     t0 = time.perf_counter()
-    assign = np.concatenate([np.load(p)["assign"] for p in paths], axis=0) \
-        if paths else np.zeros((0, max_replicas), np.int32)
-    folded_deletes = 0
-    if tombstone is not None:
-        dead = np.asarray(tombstone[:n], bool)
-        folded_deletes = int(dead.sum())
-        assign[dead] = -1              # the fold: tombstones leave postings
-    n_clusters = centroids.shape[0]
-    postings, posting_ids = build_postings(x, assign, n_clusters, cluster_len)
+    # the checkpoint reads and the layout run in a child process: in a
+    # serving process they would hold the interpreter lock for seconds
+    # while the engine's poller waits on it
+    out = _in_child(delta_layout, paths, max_replicas, tombstone, n,
+                    centroids.shape[0], cluster_len)
+    src = torch.from_numpy(out["src"]).to(dev)
+    rows = np.ascontiguousarray(x[:n])
+    xt = torch.from_numpy(rows if rows.flags.writeable else rows.copy())
+    xt = xt.to(dev)
+    postings = xt[src.clamp_min(0)]
+    postings[src < 0] = 0.0
+    del xt
     postings_s = time.perf_counter() - t0
     index = IVFIndex(
         torch.from_numpy(np.array(centroids, np.float32)).to(dev),
-        torch.from_numpy(postings).to(dev),
-        torch.from_numpy(posting_ids).to(dev))
+        postings, torch.from_numpy(out["ids"]).to(dev))
     save_manifest(workdir, plan.manifest)
     stats = {
         "shards_total": len(spans),
@@ -210,8 +225,10 @@ def delta_build(
         "bytes_streamed": int(pipe.bytes_streamed),
         "bytes_reused": int(plan.bytes_reused),
         "full_stream_bytes": int(x[:n].nbytes),
-        "folded_deletes": folded_deletes,
+        "folded_deletes": out["folded_deletes"],
         "postings_s": postings_s,
+        "assign_load_s": out["assign_load_s"],
+        "layout_s": out["layout_s"],
         "shard_stamps": [t.asdict() for t in stamps],
     }
     return index, stats
@@ -347,26 +364,18 @@ class RebuildScheduler:
             assert self.corpus.n == int(ids0[-1]) + 1
         rep.folded_inserts = int(f0)
         x = self.corpus.view()
-        index, bstats = delta_build(
-            x, self.centroids, self.workdir,
-            cluster_len=self.cluster_len, eps=self.closure_eps,
-            max_replicas=self.max_replicas, per_task=self.policy.per_task,
-            tombstone=tomb0, use_manifest=(rep.mode == "delta"), device=dev)
-        rep.n_corpus = int(x.shape[0])
-        rep.n_clusters = int(index.n_clusters)
-        rep.folded_deletes = bstats["folded_deletes"]
-        for key in ("shards_total", "shards_streamed", "shards_reused",
-                    "bytes_streamed", "bytes_reused", "full_stream_bytes"):
-            setattr(rep, key, bstats[key])
-        rep.stage2 = bstats
-        rep.t_built = self.clock()
-
-        # -- next epoch's freshness state ----------------------------------
-        capacity = self.policy.capacity or st.capacity
-        new_state = LiveFreshState(
-            dim=self.corpus.dim, capacity=capacity, n_main=self.corpus.n,
-            next_id=None, seq0=st.seq, device=dev)  # seq stays monotonic
-        pipeline = self.make_pipeline(index, new_state)
+        # the build's and the new epoch's device work go on a stream of
+        # their own: on the default stream the engine's plan stage would
+        # queue behind the corpus's copy to the card and the new tier's
+        # copies back
+        side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+        ctx = torch.cuda.stream(side) if side is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            index, bstats, new_state, pipeline = self._build(
+                rep, x, tomb0, st, dev)
+        if side is not None:
+            side.synchronize()
         # delta rebuilds must emit the same serving tier they replace: a
         # make_pipeline hook that silently fell back to f32 would undo the
         # quantized default at the first rebuild
@@ -400,6 +409,30 @@ class RebuildScheduler:
         del self.reports[: -self.MAX_REPORTS]
         self.swapped.set()
         return rep
+
+    def _build(self, rep: RebuildReport, x: np.ndarray, tomb0, st, dev):
+        """The delta build, then the next epoch's freshness state and
+        pipeline: (index, build stats, state, pipeline)."""
+        index, bstats = delta_build(
+            x, self.centroids, self.workdir,
+            cluster_len=self.cluster_len, eps=self.closure_eps,
+            max_replicas=self.max_replicas, per_task=self.policy.per_task,
+            tombstone=tomb0, use_manifest=(rep.mode == "delta"), device=dev)
+        rep.n_corpus = int(x.shape[0])
+        rep.n_clusters = int(index.n_clusters)
+        rep.folded_deletes = bstats["folded_deletes"]
+        for key in ("shards_total", "shards_streamed", "shards_reused",
+                    "bytes_streamed", "bytes_reused", "full_stream_bytes"):
+            setattr(rep, key, bstats[key])
+        rep.stage2 = bstats
+        rep.t_built = self.clock()
+
+        # -- next epoch's freshness state ----------------------------------
+        capacity = self.policy.capacity or st.capacity
+        new_state = LiveFreshState(
+            dim=self.corpus.dim, capacity=capacity, n_main=self.corpus.n,
+            next_id=None, seq0=st.seq, device=dev)  # seq stays monotonic
+        return index, bstats, new_state, self.make_pipeline(index, new_state)
 
     def _emit_rebuild_trace(self, rep: RebuildReport, bstats: dict,
                             t_start: float) -> None:

@@ -1,2 +1,2 @@
-"""The model families (port of ``repro.models``): so far the recsys
-family; the LM and GNN families are ROADMAP item 3."""
+"""The model families (port of ``repro.models``): ``recsys``, ``lm`` and
+``gnn``."""

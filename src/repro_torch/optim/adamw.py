@@ -58,31 +58,74 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
+# rows of a leaf updated at once in place (``apply(donate=True)``): the
+# update is elementwise, so any split gives the same bits
+DONATE_CHUNK = 1 << 24
+
+
+def _update(p, g, m, v, scale, cfg: AdamWConfig, bc1, bc2, lr):
+    """One leaf's (new param, m, v): the clipped gradient ``g * scale`` in
+    g's dtype (as ``clip_by_global_norm`` gives it), then the moments and
+    the step in float32."""
+    g = (g * scale).to(torch.float32)
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    mhat = m / bc1
+    vhat = v / bc2
+    new_p = p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                      + cfg.weight_decay * p)
+    return new_p.to(p.dtype), m, v
+
+
+def _update_in_place(p, g, m, v, upd):
+    """``upd`` over row blocks of one leaf, written into ``p`` and into the
+    moments (new float32 moments when ``m`` and ``v`` are of another
+    dtype, as at the first step of bf16 params); returns (m, v)."""
+    m_out = m if m.dtype == torch.float32 else torch.empty(
+        m.shape, dtype=torch.float32, device=m.device)
+    v_out = v if v.dtype == torch.float32 else torch.empty(
+        v.shape, dtype=torch.float32, device=v.device)
+    if p.dim() == 0:
+        blocks = [...]
+    else:
+        rows = max(1, DONATE_CHUNK // max(1, p[0].numel()))
+        blocks = [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+    for b in blocks:
+        np_, nm, nv = upd(p[b], g[b], m[b], v[b])
+        p[b] = np_
+        m_out[b] = nm
+        v_out[b] = nv
+    return m_out, v_out
+
+
 @torch.no_grad()
 def apply(params, grads, state: AdamWState, cfg: AdamWConfig,
-          lr_scale: Union[torch.Tensor, float] = 1.0):
-    """One AdamW update. Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+          lr_scale: Union[torch.Tensor, float] = 1.0, donate: bool = False):
+    """One AdamW update. Returns (new_params, new_state, metrics).
+
+    ``donate`` writes the new parameters and moments into the given
+    tensors (moments of another dtype than float32 are replaced), a row
+    block at a time: the same bits as the functional update, without a
+    second copy of the state."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
+                            1.0)
     step = state.step + 1
     t = step.to(torch.float32)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=t.device)
     bc1 = 1.0 - torch.pow(f32(cfg.b1), t)
     bc2 = 1.0 - torch.pow(f32(cfg.b2), t)
     lr = cfg.lr * lr_scale
-
-    def upd(p, g, m, v):
-        g = g.to(torch.float32)
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m / bc1
-        vhat = v / bc2
-        new_p = p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                          + cfg.weight_decay * p)
-        return new_p.to(p.dtype), m, v
+    upd = lambda p, g, m, v: _update(p, g, m, v, scale, cfg, bc1, bc2, lr)
 
     leaves, structure = tree_flatten(params)
     others = [tree_flatten(tr)[0] for tr in (grads, state.mu, state.nu)]
-    out = [upd(*xs) for xs in zip(leaves, *others)]
+    if donate:
+        moments = [_update_in_place(*xs, upd)
+                   for xs in zip(leaves, *others)]
+        out = [(p, m, v) for p, (m, v) in zip(leaves, moments)]
+    else:
+        out = [upd(*xs) for xs in zip(leaves, *others)]
     pick = lambda j: tree_unflatten(structure, [o[j] for o in out])
     return (pick(0), AdamWState(step=step, mu=pick(1), nu=pick(2)),
             {"grad_norm": gnorm,

@@ -262,35 +262,37 @@ class DynamicBatcher:
         if not sel:
             sel = [0]                      # anchor on head-of-line
         chosen = set(sel)
-        # vectorized greedy over cluster bitsets: the selection runs on the
-        # poller's critical path, so the inner argmin is ONE numpy op over
-        # (pool, C) bools per added request, not a python set loop — a
-        # multi-hundred-request backlog must not stall batch release
+        # vectorized greedy over each request's probed cluster ids: the
+        # selection runs on the poller's critical path, so the inner argmin
+        # is ONE numpy op over (pool, P) ids per added request (P <= the
+        # nprobe cap), not a python set loop and not a (pool, C) bitset,
+        # whose cost grew with the backlog it should drain
         probes = [_probe_set(r) for r in snap]
         n_bits = 1 + max((max(p) for p in probes if p), default=0)
-        bits = np.zeros((len(snap), n_bits), bool)
+        width = max((len(p) for p in probes), default=0)
+        ids = np.full((len(snap), width), n_bits, np.int64)   # pad: "in"
         for i, (r, p) in enumerate(zip(snap, probes)):
             if not p:
                 continue
             rb = r.route
             if rb is not None:
-                # cache the request's bit row on its RoutePlan: a pool
-                # persists across formations, so the set -> bitset
+                # cache the request's id row on its RoutePlan: a pool
+                # persists across formations, so the set -> array
                 # conversion happens once per request, not once per batch
                 if rb.bits is None:
-                    rb.bits = np.zeros(max(p) + 1, bool)
-                    rb.bits[list(p)] = True
-                bits[i, : rb.bits.size] = rb.bits
+                    rb.bits = np.fromiter(sorted(p), np.int64, len(p))
+                ids[i, : rb.bits.size] = rb.bits
             else:
-                bits[i, list(p)] = True
-        union = np.zeros(n_bits, bool)
+                ids[i, : len(p)] = sorted(p)
+        union = np.zeros(n_bits + 1, bool)
+        union[n_bits] = True               # the pad counts as already in
         for i in sel:
-            union |= bits[i]
+            union[ids[i]] = True
         remaining = np.asarray(
             [i for i in range(len(snap)) if i not in chosen], np.int64)
         cap = self.policy.union_growth_cap
         while len(sel) < limit and remaining.size:
-            growth = (bits[remaining] & ~union).sum(axis=1)
+            growth = (~union[ids[remaining]]).sum(axis=1)
             pos = int(np.argmin(growth))   # first min = oldest (FIFO ties)
             if cap and int(growth[pos]) > cap:
                 break                      # bounded union growth: leave the
@@ -299,7 +301,7 @@ class DynamicBatcher:
             best = int(remaining[pos])
             sel.append(best)
             chosen.add(best)
-            union |= bits[best]
+            union[ids[best]] = True
             remaining = np.delete(remaining, pos)
         take = [snap[i] for i in sorted(sel)]
         q.clear()

@@ -50,10 +50,10 @@ class RoutePlan:
     nprobe: int
     probe_set: frozenset            # {cluster id} — the grouping signature
     source: object                  # pipeline that routed (staleness tag)
-    bits: Optional[np.ndarray] = None   # (max probed id + 1,) bool cache,
+    bits: Optional[np.ndarray] = None   # (|probe_set|,) sorted int64 ids,
                                         # built lazily by the batcher so
                                         # formation never redoes the
-                                        # set -> bitset conversion per pool
+                                        # set -> array conversion per pool
 
 
 @dataclasses.dataclass
@@ -218,6 +218,10 @@ class EngineStats:
     failed: int = 0                 # serving-path error; completed w/o payload
     batches: int = 0
     service_s: float = 0.0          # summed batch service time
+    sq_peak: int = 0                # most submissions one SQ drain took:
+                                    # the SQ's peak length
+    drain_gap_max_s: float = 0.0    # the poller's longest gap between two
+                                    # SQ drains
 
 
 class ServeEngine:
@@ -241,13 +245,18 @@ class ServeEngine:
     def __init__(self, pipelines: dict, batcher, qp: Optional[QueuePair] = None,
                  clock=time.monotonic, update_lanes: Optional[dict] = None,
                  depth: int = 1, obs: Optional[Observability] = None,
-                 quality=None):
+                 quality=None, drain_log: int = 0):
         self.pipelines = dict(pipelines)
         self.batcher = batcher
         self.qp = qp or QueuePair()
         self.clock = clock
         self.depth = max(int(depth), 1)
         self.stats = EngineStats()
+        # (clock time, submissions taken) of the last ``drain_log`` SQ
+        # drains, for a per-window view of the poller's gaps; off at 0
+        self.drain_log = collections.deque(maxlen=drain_log) \
+            if drain_log else None
+        self._last_drain: Optional[float] = None
         self.obs = obs if obs is not None else Observability.off()
         m = self.obs.metrics
         self._m_comp = m.counter("engine.completions")    # labeled by status
@@ -408,7 +417,16 @@ class ServeEngine:
     def _drain_sq(self, now: float) -> None:
         sheds, by_index = [], {}
         tracing = self.obs.tracing
-        for req in self.qp.pop_submissions():
+        reqs = self.qp.pop_submissions()
+        st = self.stats
+        if self._last_drain is not None:
+            st.drain_gap_max_s = max(st.drain_gap_max_s,
+                                     now - self._last_drain)
+        self._last_drain = now
+        st.sq_peak = max(st.sq_peak, len(reqs))
+        if self.drain_log is not None:
+            self.drain_log.append((now, len(reqs)))
+        for req in reqs:
             c = self.batcher.add(req, now)
             if c is not None:
                 sheds.append(c)

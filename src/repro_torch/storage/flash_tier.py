@@ -95,11 +95,14 @@ class FlashTier:
                 prefix=f"{self.name}-e{self.epoch}-", suffix=".f32")
             os.close(fd)
         self.path = path
-        mm = np.memmap(path, dtype=np.float32, mode="w+",
-                       shape=(self.n, self.dim))
-        mm[:] = x
-        mm.flush()
-        del mm
+        # a plain write and fsync: both release the interpreter lock, where
+        # a memmap's flush (msync) holds it for the whole sync, stalling a
+        # serving process's other threads (a live rebuild builds an epoch's
+        # flash file while the engine's poller serves)
+        with open(path, "wb") as f:
+            f.write(memoryview(x).cast("B"))
+            f.flush()
+            os.fsync(f.fileno())
         # reopen read-only: serving must never scribble on the flash copy
         self._mm = np.memmap(path, dtype=np.float32, mode="r",
                              shape=(self.n, self.dim))

@@ -23,6 +23,23 @@ import torch
 STEP_PARAM_ATOL = 1e-5
 
 
+def adamw_step_gap(mu_a, nu_a, mu_b, nu_b, cfg=None) -> np.ndarray:
+    """lr * |u_a - u_b| elementwise, u = mhat / (sqrt(vhat) + eps) of
+    AdamW's first step from moments a and b: how far one step moves the
+    same parameters apart for two gradients.  Where |g| >> eps it is
+    ~lr * eps * |g_a - g_b| / g^2, nothing; where |g| is near eps the
+    update g / (|g| + eps) magnifies the gradients' difference by up to
+    1 / (4 eps), so two float32 evaluations whose gradients agree within
+    1e-6 of their scale can move such an element by different amounts."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = cfg or AdamWConfig()
+    f64 = lambda x: np.asarray(x, np.float64)
+    u = lambda m, v: (f64(m) / (1 - cfg.b1)) / (
+        np.sqrt(f64(v) / (1 - cfg.b2)) + cfg.eps)
+    return cfg.lr * np.abs(u(mu_a, nu_a) - u(mu_b, nu_b))
+
+
 @pytest.fixture(autouse=True)
 def torch_threads():
     """The suite runs several xdist workers; keep each one's torch pool

@@ -236,8 +236,8 @@ def test_cli_fail_at_and_resume_bit_exact(tmp_path, capsys):
 def test_cli_refuses_what_it_does_not_drive(tmp_path):
     from repro_torch.launch.train import main
 
-    with pytest.raises(SystemExit, match="ROADMAP item 3"):
-        main(["--arch", "qwen2_moe", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="launch/serve.py"):
+        main(["--arch", "helmsman", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="LM family only"):
         main(["--arch", "din", "--accum", "2", "--device", "cpu",
               "--workdir", str(tmp_path)])

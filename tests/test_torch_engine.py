@@ -5,6 +5,7 @@ JAX pipeline on one index (carried across as numpy arrays), driven with
 ``step(now=...)`` as ``tests/test_runtime.py`` drives the reference; plus
 the pipeline pieces the engine reads (stage spans, latency percentiles,
 the re-rank round size and quality stamps)."""
+import collections
 import dataclasses
 import time
 
@@ -64,28 +65,35 @@ def test_loadgen_traces_bit_equal_to_reference(name):
 # -------------------------------------------------------------------------
 # batcher
 # -------------------------------------------------------------------------
-def _formations(pkg_engine, pkg_batcher, grouping):
+def _formations(pkg_engine, pkg_batcher, grouping, backlog=False):
     """Requests with admission routes and deadlines fed to one batcher on a
-    virtual clock; returns every formation decision."""
+    virtual clock; returns every formation decision.  ``backlog``: bursts of
+    150 arrivals at one instant over 20,000 clusters, 16 probes each, the
+    batch 32 and a cap on the union's growth (the pools of an engine that
+    fell behind)."""
     rng = np.random.default_rng(21)
+    batch, n_clusters, n_probe, n_req = (32, 20_000, 16, 600) if backlog \
+        else (8, 40, 6, 120)
     policy = pkg_batcher.BatchPolicy(
-        max_batch=8, max_wait_s=0.004, pad=4, shed="degrade",
+        max_batch=batch, max_wait_s=0.004, pad=4, shed="degrade",
         degrade_nprobe=2, init_query_s=1e-3, ewma=0.0, overhead_s=1e-3,
-        grouping=grouping)
+        grouping=grouping, union_growth_cap=40 if backlog else 0)
     b = pkg_batcher.DynamicBatcher(policy, ["a", "b"])
     source = object()
     log = []
-    for i in range(120):
-        now = i * 0.0007
-        cids = rng.integers(0, 40, size=6).astype(np.int32)
+    for i in range(n_req):
+        now = (i // 150) * 0.003 if backlog else i * 0.0007
+        cids = rng.integers(0, n_clusters, size=n_probe).astype(np.int32)
         req = pkg_engine.SearchRequest(
             req_id=i, index="ab"[i % 5 == 0], query=np.zeros(4, np.float32),
             topk=10, deadline=None if i % 3 else now + 0.006, arrival=now,
-            route=pkg_engine.make_route_plan(cids, int(rng.integers(2, 7)),
-                                             source))
+            route=pkg_engine.make_route_plan(
+                cids, int(rng.integers(2, n_probe + 1)), source))
         shed = b.add(req, now)
         if shed is not None:
             log.append(("admit-shed", shed.req_id, shed.reason))
+        if backlog and i % 150 != 149:
+            continue                   # the burst lands before a formation
         while True:
             mb, sheds = b.form(now)
             log += [("shed", c.req_id, c.reason) for c in sheds]
@@ -105,15 +113,17 @@ def _formations(pkg_engine, pkg_batcher, grouping):
     return log, dataclasses.asdict(b.stats)
 
 
-@pytest.mark.parametrize("grouping", ["fifo", "locality"])
-def test_batcher_forms_the_same_microbatches(grouping):
+@pytest.mark.parametrize("grouping,backlog", [
+    ("fifo", False), ("locality", False), ("locality", True)],
+    ids=["fifo", "locality", "locality-backlog"])
+def test_batcher_forms_the_same_microbatches(grouping, backlog):
     import repro.runtime.batcher as jb
     import repro.runtime.engine as je
     import repro_torch.runtime.batcher as tb
     import repro_torch.runtime.engine as te
 
-    want = _formations(je, jb, grouping)
-    got = _formations(te, tb, grouping)
+    want = _formations(je, jb, grouping, backlog)
+    got = _formations(te, tb, grouping, backlog)
     assert got == want
     log, stats = got
     assert stats["batches"] > 5
@@ -273,6 +283,31 @@ def test_engine_poller_thread_serves_and_drains(small_index, small_corpus):
     st = teng.stats
     assert st.submitted == st.completed and st.failed == 0
     assert inflight_depth(times) >= 1
+    for p in teng.pipelines.values():
+        p.close()
+
+
+def test_engine_records_sq_peak_and_drain_gaps(small_index, small_corpus):
+    """The engine's own view of its poller, on a virtual clock: the SQ's
+    peak length (the most submissions one drain took), the longest gap
+    between two drains, and the bounded drain log (off by default)."""
+    _, q, _ = small_corpus
+    q = q.astype(np.float32)
+    _, teng = _engines(small_index, 1, dict(max_batch=8, max_wait_s=0.002,
+                                            pad=8), lambda: 0.0)
+    assert teng.drain_log is None
+    teng.drain_log = collections.deque(maxlen=2)
+    for i in range(5):
+        teng.submit(q[i], 5, index="idx0")
+    teng.step(now=1.0)
+    for i in range(2):
+        teng.submit(q[i], 5, index="idx0")
+    teng.step(now=1.25)
+    teng.step(now=2.0)
+    st = teng.stats
+    assert (st.sq_peak, st.drain_gap_max_s) == (5, 0.75)
+    assert list(teng.drain_log) == [(1.25, 2), (2.0, 0)]
+    assert st.completed == 7
     for p in teng.pipelines.values():
         p.close()
 

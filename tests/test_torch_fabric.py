@@ -26,6 +26,7 @@ from repro_torch.core.search import SearchConfig  # noqa: E402
 from repro_torch.distributed import (  # noqa: E402
     FaultEvent, FaultInjector, ShardedFabric,
 )
+from repro_torch.distributed.fabric import HEDGE_MIN_SEEN  # noqa: E402
 from repro_torch.obs import Observability, check_well_nested  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     BatchPolicy, DynamicBatcher, ServeEngine, shard_skewed_trace,
@@ -297,6 +298,68 @@ def test_stall_triggers_hedge_and_stays_correct(port_index, queries,
     assert fab.stats.hedges >= 1 and fab.stats.timeouts == 0
     assert served_by_2 == 0                    # no reply came from shard 2
     assert 2 not in fab.failed                 # straggler, not a corpse
+
+
+def _held_batch(fab, queries):
+    """One batch fanned out to a fabric whose workers never start: its
+    tasks stay outstanding, one on each shard, until the test drops them."""
+    state = fab.dispatch(fab.prefetch(fab.plan(queries, CFG.k)))
+    shards = sorted(r.task.shard for r in fab._outstanding.values())
+    assert shards == list(range(fab.n_shards))
+    return state
+
+
+def _drain_shard(fab, shard):
+    for tid in [t for t, r in fab._outstanding.items()
+                if r.task.shard == shard]:
+        fab._drop_outstanding(tid)
+
+
+def test_hedges_go_only_to_a_less_loaded_replica(port_index, queries):
+    """Under load every task outlives ``hedge_after_s``: none is copied
+    onto a replica as loaded as its own shard.  Once shard 0 has drained,
+    shard 2's task (its clusters replicated on 0) is, and that copy is
+    never hedged back."""
+    now = [0.0]
+    fab = _replicated(port_index, 4, hedge_after_s=0.02,
+                      clock=lambda: now[0])
+    try:
+        state = _held_batch(fab, queries[:32])
+        now[0] += 1.0
+        fab._hedge_due(state)
+        assert fab.stats.hedges == 0
+        _drain_shard(fab, 0)
+        fab._hedge_due(state)
+        hedged = [r.task.shard for r in fab._outstanding.values()
+                  if r.task.kind == "hedge"]
+        assert fab.stats.hedges == 1 and hedged == [0]
+        _drain_shard(fab, 2)               # the straggler idles; the copy
+        now[0] += 1.0                      # on 0 is old and still owed
+        fab._hedge_due(state)
+        assert fab.stats.hedges == 1
+    finally:
+        fab.close()
+
+
+def test_hedge_threshold_follows_the_task_latencies(port_index, queries):
+    """Once ``HEDGE_MIN_SEEN`` tasks have answered, a task is hedged only
+    past the 95th percentile of their latencies, not at
+    ``hedge_after_s``."""
+    now = [0.0]
+    fab = _replicated(port_index, 4, hedge_after_s=0.02,
+                      clock=lambda: now[0])
+    try:
+        fab._latencies.extend([2.0] * HEDGE_MIN_SEEN)
+        state = _held_batch(fab, queries[:32])
+        _drain_shard(fab, 0)
+        now[0] += 1.0
+        fab._hedge_due(state)
+        assert fab.stats.hedges == 0
+        now[0] += 1.5
+        fab._hedge_due(state)
+        assert fab.stats.hedges == 1
+    finally:
+        fab.close()
 
 
 def test_corrupt_payload_detected_and_retried(port_index, queries,

@@ -1216,3 +1216,89 @@ def test_ckpt_roundtrip_of_cuda_tensors(cuda, tmp_path):
         bits = (lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16
                 else t)
         assert torch.equal(bits(a), bits(b))
+
+
+# --------------------------------------------------------------------------
+# the LM and GNN families
+# --------------------------------------------------------------------------
+def test_resolve_device_keeps_bf16_products_in_float32(cuda):
+    """On the card every bf16 product accumulates in float32 to the end
+    (no reduced-precision split-K reduction), as XLA's do."""
+    from repro_torch.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_moe_layer_and_segment_sum_repeat_bit_for_bit(cuda):
+    """The MoE combine (each token's K outputs added in order) and
+    GraphCast's scatter-add give the same bits in two runs on the card,
+    the gradients through the gathers included; the card's layer equals
+    the CPU's within bf16 rounding."""
+    from repro_torch.configs import get
+    from repro_torch.models.gnn.graphcast import segment_sum
+    from repro_torch.models.lm.moe import moe_ffn, moe_param_shapes
+
+    moe = get("qwen2_moe").config.moe
+    d = 256
+    g = torch.Generator().manual_seed(0)
+    lp = {k: (torch.randn(s.shape, generator=g) / s.shape[-2] ** 0.5).to(
+        s.dtype) for k, s in moe_param_shapes(moe, d, (), torch.bfloat16)
+        .items()}
+    x = torch.randn((2, 512, d), generator=g).to(torch.bfloat16)
+    lpc = {k: v.to(cuda) for k, v in lp.items()}
+
+    def run():
+        xc = x.to(cuda).requires_grad_(True)
+        out = moe_ffn(xc, lpc, moe, None)
+        (gx,) = torch.autograd.grad(out.float().square().sum(), xc)
+        return out.detach(), gx
+
+    (a, ga), (b, gb) = run(), run()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(ga.view(torch.int16), gb.view(torch.int16))
+    want = moe_ffn(x, lp, moe, None).float()
+    err = (a.float().cpu() - want).abs().max() / want.abs().max()
+    assert float(err) < 2e-2
+    m = torch.randn((100_000, 64), generator=g).to(cuda)
+    ids = torch.randint(0, 5000, (100_000,), generator=g).to(cuda)
+    s1, s2 = segment_sum(m, ids, 5000), segment_sum(m, ids, 5000)
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+    np.testing.assert_allclose(
+        s1.cpu().numpy(), segment_sum(m.cpu(), ids.cpu(), 5000).numpy(),
+        rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["phi4_mini", "qwen2_moe", "gemma3_27b"])
+def test_lm_step_card_matches_cpu(cuda, name):
+    """One step of the scaled config on the card against the CPU: the
+    loss within rtol 1e-5, every parameter within 2.5 lr and all but the
+    share tests/test_torch_lm.py allows within STEP_PARAM_ATOL."""
+    from _torch_port import STEP_PARAM_ATOL
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.collectives import tree_flatten, tree_map
+    from repro_torch.launch.train import scaled_lm_config
+    from repro_torch.models.lm import init_params, make_train_step
+    from repro_torch.optim import adamw
+
+    share = {"phi4_mini": 0.0, "qwen2_moe": 0.0, "gemma3_27b": 4e-2}[name]
+    cfg = scaled_lm_config(get(name).config, 0.02)
+    params = init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(2, 33)))
+    step = make_train_step(cfg)
+    wp, _, wm = step(params, adamw.init(params), toks)
+    cp = tree_map(lambda t: t.to(cuda), params)
+    gp, _, gm = step(cp, adamw.init(cp), toks.to(cuda))
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-5)
+    off = n = 0
+    for a, b in zip(tree_flatten(gp)[0], tree_flatten(wp)[0]):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2.5 * adamw.AdamWConfig().lr
+        off += int((d > STEP_PARAM_ATOL).sum())
+        n += d.numel()
+    assert off <= share * n

@@ -134,6 +134,45 @@ def test_delta_build_matches_the_reference(small_corpus, cents, tmp_path):
         assert len(got_s["shard_stamps"]) == got_s["shards_streamed"]
 
 
+@pytest.mark.parametrize("cluster_len", [8, 64])
+def test_delta_build_layout_in_a_child_matches_the_reference(
+        small_corpus, cents, tmp_path, cluster_len):
+    """The checkpoint reads and the posting layout run in a spawned child
+    (``core/postings.py``) and the payload is gathered with torch: the
+    postings and ids stay bit-equal to the reference's ``delta_build`` and
+    ``build_postings``, with overfull clusters cut (cluster_len 8), padded
+    ones, an empty one and tombstones, and the stats carry the split."""
+    from repro.core.ivf import build_postings as ref_build_postings
+    from repro.lifecycle import delta_build as ref_delta_build
+    from repro_torch.core.ivf import build_postings
+    from repro_torch.core.postings import delta_layout
+
+    x, _, _ = small_corpus
+    cents_e = np.concatenate([cents, cents[:1] + 1e3])   # one empty cluster
+    tomb = np.zeros(x.shape[0], bool)
+    tomb[::7] = True
+    build = {**BUILD, "cluster_len": cluster_len}
+    ref_i, _ = ref_delta_build(x, cents_e, str(tmp_path / "ref"),
+                               tombstone=tomb, **build)
+    got_i, got_s = delta_build(x, cents_e, str(tmp_path / "port"),
+                               tombstone=tomb, device="cpu", **build)
+    for a, b in zip(_arrays(got_i), _arrays(ref_i)):
+        assert a.tobytes() == b.tobytes()
+    assert (np.asarray(got_i.posting_ids)[-1] == -1).all()
+    assert got_s["assign_load_s"] >= 0 and got_s["layout_s"] >= 0
+    paths = sorted(str(p) for p in (tmp_path / "port" / "shards").iterdir())
+    here = delta_layout(paths, build["max_replicas"], tomb, x.shape[0],
+                        cents_e.shape[0], cluster_len)
+    assert np.array_equal(here["ids"], np.asarray(got_i.posting_ids))
+    assign = np.concatenate([np.load(p)["assign"] for p in paths])
+    assign[tomb] = -1
+    for got, want in zip(build_postings(x, assign, cents_e.shape[0],
+                                        cluster_len),
+                         ref_build_postings(x, assign, cents_e.shape[0],
+                                            cluster_len)):
+        assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+
 def test_port_delta_build_reuses_a_reference_workdir(small_corpus, cents,
                                                      tmp_path):
     """The manifest holds the same content hashes in both packages, so a
