@@ -5613,6 +5613,268 @@ def _row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
             "library_note": library_note, "shape": shape, **extra}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the mesh train steps and the dry run (launch/cells.py,
+# launch/dryrun.py)
+# --------------------------------------------------------------------------
+MESH_TRAIN_STEPS = 3             # (a): timed after the first
+MESH_MOE_TOKENS = (2, 4096)      # (a): one qwen2-moe layer's batch
+MESH18_BACKEND = "nccl"          # (a): one rank, one card
+DRY_MESH = "single"              # (b): the sweep's mesh here ("multi" runs
+                                 # on a CPU host, PERF.md section 4)
+DRY_PROCS = 6                    # (b): children sharing the sweep's cells
+DRY_TIMEOUT_S = 300              # (b): the sweep's bound
+EXAMPLE_ARGS = {"quickstart_torch": [],
+                "serve_anns_torch": ["--batches", "6"]}
+# a child of the sweep: run_cell for each (arch, shape, mesh) it is given
+DRY_CHILD = ("import json, sys\n"
+             "from repro_torch.launch.dryrun import run_cell\n"
+             "for a, s, m in json.loads(sys.argv[1]):\n"
+             "    run_cell(a, s, m, sys.argv[2])\n")
+
+
+def dryrun_sweep(work: str) -> dict:
+    """Phase 18 (b): the dry run of every cell on ``DRY_MESH`` (meta
+    tensors over a fake process group; the children see no card), its
+    cells dealt to ``DRY_PROCS`` child processes on the host; per family
+    the cells ok, failed and skipped and the slowest cell.  Any failed
+    cell fails the phase (no cell of the reference's fails: PERF.md
+    section 6).  Started beside phases 3-17 at a low priority, one child
+    took 1,018-1,051 s of wall for 140 s of cells on an H100 host (PERF.md
+    section 6): the host's cores are busy there."""
+    import glob
+
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import cell_list
+
+    out = os.path.join(work, "dryrun")
+    cells = cell_list(mesh=DRY_MESH, all_=True, out_dir=out)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = []
+    for i in range(DRY_PROCS):
+        logf = open(os.path.join(work, f"dryrun{i}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DRY_CHILD,
+             json.dumps(cells[i::DRY_PROCS]), out], env=env, cwd=ROOT,
+            stdout=logf, stderr=subprocess.STDOUT))
+        logf.close()
+    try:
+        rcs = [p.wait(timeout=max(1.0, DRY_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"dry run (b): the sweep did not finish in "
+                             f"{DRY_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    fams: dict = {}
+    failed = []
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        fam = fams.setdefault(get(rec["arch"]).family, {
+            "ok": 0, "failed": 0, "skipped": 0, "slowest": ("", 0.0),
+            "seconds": 0.0})
+        if rec["ok"] is None:
+            fam["skipped"] += 1
+            continue
+        if not rec["ok"]:
+            fam["failed"] += 1
+            failed.append(f"{rec['arch']}.{rec['shape']}: {rec['error']}")
+            continue
+        fam["ok"] += 1
+        secs = rec["seconds"]["lower"] + rec["seconds"]["compile"]
+        fam["seconds"] += secs
+        if secs > fam["slowest"][1]:
+            fam["slowest"] = (f"{rec['arch']}.{rec['shape']}", secs)
+    for name, fam in fams.items():
+        log(f"[dryrun] (b) {name}: {fam['ok']} ok, {fam['failed']} failed, "
+            f"{fam['skipped']} skipped on the {DRY_MESH} mesh; cells "
+            f"{fam['seconds']:.1f} s, slowest {fam['slowest'][0]} "
+            f"{fam['slowest'][1]:.1f} s")
+    n_ok = sum(f["ok"] for f in fams.values())
+    log(f"[dryrun] (b) the sweep over {DRY_PROCS} children: {wall:.1f} s, "
+        f"exit codes {rcs}, {n_ok} cells ok")
+    want = 40 * (2 if DRY_MESH == "both" else 1)
+    if any(rcs) or failed or n_ok != want:
+        raise AssertionError(f"dry run (b): exit codes {rcs}, {n_ok} ok, "
+                             f"failed {failed}")
+    return {"families": fams, "wall_s": wall}
+
+
+def mesh_step_case(work: str, name: str, arch, cell: str, params,
+                   batch) -> dict:
+    """One cell's train step at one NCCL rank on the card (DTensors over
+    a (1, 1) mesh: the placements, regions and AdamW's redistributions)
+    against the one-process step on the same arrays, both run and
+    compared in the rank (``repro_torch.testing.mesh_step_check``)."""
+    import torch
+
+    from repro_torch import testing
+    from repro_torch.launch import mesh_jobs
+    from repro_torch.launch.mesh import spawn
+
+    path = os.path.join(work, "mesh18")
+    os.makedirs(path, exist_ok=True)
+    torch.save((params, batch), os.path.join(path, f"{name}.pt"))
+    job = {"kind": testing.mesh_step_check, "arch": arch, "cell": cell,
+           "work": path, "args": name, "shape": (1, 1),
+           "steps": MESH_TRAIN_STEPS}
+    res = spawn(mesh_jobs.run, (1,), ("data",), backend=MESH18_BACKEND,
+                device=DEVICE, args=([job],),
+                timeout_s=MESH_TIMEOUT_S)[0][0]
+    if abs(res["loss"] - res["one_loss"]) > 1e-5 * abs(res["one_loss"]):
+        raise AssertionError(f"mesh train (a) {name}: loss {res['loss']} "
+                             f"vs {res['one_loss']}")
+    if res["param_excess"] > STEP_PARAM_ATOL:
+        raise AssertionError(f"mesh train (a) {name}: params "
+                             f"{res['param_excess']} beyond the step gap "
+                             f"(> {STEP_PARAM_ATOL})")
+    if res["moment_gap"] > 1e-5:
+        raise AssertionError(f"mesh train (a) {name}: moments "
+                             f"{res['moment_gap']} of the largest")
+    return res
+
+
+def mesh_train_steps(work: str, card: str) -> dict:
+    """Phase 18 (a): MIND at batch 65,536 and one qwen2-moe layer's block
+    (float32, capacity factor 4, its attention rescaled as phase 17's)
+    through ``make_train_step(mesh=...)`` at one NCCL rank, and
+    ``kmeans_sharded_step`` on DTensors (K2 in its ``local_map``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ArchDef, ShapeDef, get
+    from repro_torch.launch import mesh_jobs
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.models.recsys import models as rm
+
+    out = {}
+    mind = get("mind")
+    g = torch.Generator().manual_seed(61)
+    p = rm.init_params(mind.config, g, "cpu")
+    rng = np.random.default_rng(67)
+    rows, seq, b = mind.config.table_rows, mind.config.seq_len, TRAIN_BATCH
+    t = torch.from_numpy
+    batch = {"sparse_ids": t(rng.integers(0, rows, (b, 1)).astype(np.int32)),
+             "labels": t(rng.integers(0, 2, b).astype(np.float32)),
+             "hist_ids": t(rng.integers(-1, rows, (b, seq)).astype(np.int32)),
+             "hist_len": t(rng.integers(1, seq + 1, b).astype(np.int32))}
+    out["mind"] = mesh_step_case(work, "mind", mind, "train_batch", p,
+                                 batch)
+    del p, batch
+    qcfg = get("qwen2_moe").config
+    qcfg = dataclasses.replace(
+        qcfg, n_layers=1, dtype=torch.float32,
+        moe=dataclasses.replace(qcfg.moe, capacity_factor=MOE_CAPACITY))
+    qarch = ArchDef("qwen2_moe", "lm", qcfg, {"train_4k": ShapeDef(
+        "train_4k", "train", MESH_MOE_TOKENS[0], MESH_MOE_TOKENS[1])})
+    qp = tf.init_params(qcfg, torch.Generator().manual_seed(71), "cpu")
+    contracted_fan_in(qp, qcfg)
+    toks = t(np.random.default_rng(73).integers(
+        0, qcfg.vocab, (MESH_MOE_TOKENS[0], MESH_MOE_TOKENS[1] + 1))
+        .astype(np.int32))
+    out["moe"] = mesh_step_case(work, "moe", qarch, "train_4k", qp, toks)
+    del qp
+    # K2 in kmeans_sharded_step's local_map, on DTensors
+    path = os.path.join(work, "mesh18")
+    x = np.random.default_rng(79).normal(size=(LLOYD_ROWS, 128)).astype(
+        np.float32)
+    cents = x[:LLOYD_K].copy()
+    mesh_write(path, {"x": x, "cents": cents})
+    ranks = spawn(mesh_jobs.run, (1,), ("data",), backend=MESH18_BACKEND,
+                  device=DEVICE, args=([{"kind": "kmeans", "work": path,
+                                         "steps": 3, "global_view": True,
+                                         "shape": (1, 1)}],),
+                  timeout_s=MESH_TIMEOUT_S)
+    res = ranks[0][0]
+    fired = mesh_launches([res], "mesh train (a) K2 global view (phase 18)")
+    if DEVICE == "cuda" and not fired.get("kmeans_assign_update"):
+        raise AssertionError(f"mesh train (a): K2 did not launch ({fired})")
+    from repro_torch.kernels import ops as kops
+
+    xd, cd = torch.from_numpy(x).to(DEVICE), torch.from_numpy(cents).to(
+        DEVICE)
+    _, _, sums, counts = kops.kmeans_assign_update(xd, cd)
+    c = counts.float()[:, None]
+    want = torch.where(c > 0, sums / torch.clamp_min(c, 1.0), cd).cpu()
+    if not np.array_equal(res["counts"], counts.cpu().numpy()):
+        raise AssertionError("mesh train (a): K2 counts differ")
+    err = float((torch.from_numpy(res["centroids"]) - want).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"mesh train (a): K2 centroids {err}")
+    del xd, cd
+    free_card()
+    out["k2"] = {"ms": res["ms_per_step"], "max_abs_err": err}
+    gib = lambda n: n / 2**30
+    for name, what in (("mind", f"MIND at batch {TRAIN_BATCH} (table "
+                                f"{rows} x 64)"),
+                       ("moe", f"one qwen2-moe layer (64 experts, d 2048, "
+                               f"vocab 151,936, float32) on "
+                               f"{MESH_MOE_TOKENS[0]} x "
+                               f"{MESH_MOE_TOKENS[1]} tokens")):
+        r = out[name]
+        log(f"[mesh18] (a) {what}: make_train_step(mesh=...) at one NCCL "
+            f"rank on {card}, mesh (1, 1): loss {r['loss']:.6g} equal to "
+            f"the one-process step within rtol 1e-5, params within "
+            f"{STEP_PARAM_ATOL} beyond the step gap (worst "
+            f"{r['param_excess']:.3g}), moments within "
+            f"{r['moment_gap']:.3g} of the largest; "
+            f"{', '.join(f'{m:.2f}' for m in r['ms'])} ms a step, one "
+            f"process {r['one_ms']:.2f} ms (host clock around a "
+            f"synchronized step); peak {gib(r['peak']):.2f} GiB, one "
+            f"process {gib(r['one_peak']):.2f} GiB")
+    log(f"[mesh18] (a) kmeans_sharded_step on DTensors ({LLOYD_ROWS} x 128, "
+        f"K {LLOYD_K}) at one NCCL rank: K2 launched {fired}, counts equal "
+        f"to one K2, centroids within {err:.3g}; "
+        f"{out['k2']['ms']:.3f} ms a step")
+    return out
+
+
+def examples_on_card(card: str) -> dict:
+    """Phase 18 (c): ``examples/quickstart_torch.py`` and
+    ``examples/serve_anns_torch.py`` on the card, through their own
+    arguments."""
+    import importlib.util
+
+    out = {}
+    for name, argv in EXAMPLE_ARGS.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        res = mod.run(mod.build_parser().parse_args(
+            ["--device", DEVICE] + argv))
+        res["seconds"] = time.perf_counter() - t0
+        if res["recall"] < 0.95:
+            raise AssertionError(f"example {name}: recall {res['recall']}")
+        out[name] = res
+        log(f"[examples] (c) {name} on {card}: recall@10 "
+            f"{res['recall']:.4f}, {res['seconds']:.1f} s"
+            + (f", {res['qps']:.0f} q/s (host clock)" if "qps" in res
+               else f", mean nprobe {res['mean_nprobe']:.2f}"))
+    free_card()
+    return out
+
+
+def phase_cells(work: str, card: str) -> dict:
+    """Phase 18: (a) the mesh train steps, (b) the dry run, (c) both
+    examples on the card."""
+    t0 = time.perf_counter()
+    out = {"a": mesh_train_steps(work, card), "c": examples_on_card(card),
+           "b": dryrun_sweep(work)}
+    log(f"[mesh18] phase 18 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import shutil
 
@@ -5647,6 +5909,7 @@ def main() -> int:
         phase_mesh(work, built, served, resident)
         phase_train(work, dev["card"])
         phase_lm(work, dev["card"])
+        phase_cells(work, dev["card"])
         rows = phase_times(built, served, kernel_errs, resident, streamed)
     finally:
         if served is not None:

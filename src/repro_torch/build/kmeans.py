@@ -369,7 +369,16 @@ def kmeans_sharded_step(mesh, x_local: torch.Tensor, cents: torch.Tensor,
     rows (split over the data axes), ``cents`` (K, D) replicated; every
     rank returns the same new centroids, ``where(counts > 0, sums /
     max(counts, 1), cents)`` (plain torch, as the reference's jnp M-step).
-    ``k`` is the reference's unused argument."""
-    sums, counts = kmeans_sharded_sums(mesh, x_local, cents, fused)
-    c = counts.to(torch.float32)[:, None]
-    return torch.where(c > 0, sums / torch.clamp_min(c, 1.0), cents)
+    ``k`` is the reference's unused argument.  Given DTensors (the global
+    rows split over the data axes, the centroids replicated), it returns
+    a replicated DTensor."""
+    from repro_torch.distributed.sharding import P, local_region
+
+    def step(x_local, cents):
+        sums, counts = kmeans_sharded_sums(mesh, x_local, cents, fused)
+        c = counts.to(torch.float32)[:, None]
+        return torch.where(c > 0, sums / torch.clamp_min(c, 1.0), cents)
+
+    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+    return local_region(step, mesh, (P(data_axes), P()), (P(),))(
+        x_local, cents)

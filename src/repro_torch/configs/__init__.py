@@ -2,10 +2,10 @@
 archs + the paper's own Helmsman config.
 
 Each ``configs/<id>.py`` exports ``ARCH`` (an :class:`ArchDef`);
-``get(name)`` and ``all_archs()`` are consumed by ``launch/train.py`` and
-``chip_smoke.py``.  Cell construction (abstract inputs, step function and
-shardings per arch x shape x mesh) is ``launch/cells.py`` in the reference
-and not ported yet (ROADMAP item 4).
+``get(name)`` and ``all_archs()`` are consumed by ``launch/train.py``,
+``launch/dryrun.py`` and ``chip_smoke.py``.  Cell construction (abstract
+inputs, step function and shardings per arch x shape x mesh) lives in
+``launch/cells.py``.
 """
 from __future__ import annotations
 

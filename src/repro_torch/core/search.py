@@ -308,7 +308,8 @@ def make_sharded_serve(mesh, cfg: SearchConfig, *,
     over ``shard_axis``; LLSP replicated; queries and topk over
     ``batch_axes``) and returns this rank's rows of ``(dists, ids,
     nprobe)`` (its ``out_specs``).  Every rank of the mesh calls it once a
-    batch: the all-gathers are collective."""
+    batch: the all-gathers are collective.  Given DTensors (the global
+    arrays), it returns DTensors."""
     from repro_torch.distributed.sharding import P
 
     search = _sharded_local_search(mesh, cfg, shard_axis)
@@ -320,10 +321,20 @@ def make_sharded_serve(mesh, cfg: SearchConfig, *,
 
     bspec = P(tuple(batch_axes))
     cent = P(shard_axis) if cfg.shard_centroids else P()
-    local_search.in_specs = (cent, P(shard_axis), P(shard_axis), P(),
-                             bspec, bspec)
-    local_search.out_specs = (bspec, bspec, bspec)
-    return local_search
+    return _global_view(local_search, mesh,
+                        (cent, P(shard_axis), P(shard_axis), P(), bspec,
+                         bspec), (bspec, bspec, bspec))
+
+
+def _global_view(local_search, mesh, in_specs, out_specs):
+    """``local_search`` that also takes the global arrays as DTensors
+    (the reference's ``shard_map`` as a ``local_map``); its
+    ``in_specs`` and ``out_specs`` are the reference's."""
+    from repro_torch.distributed.sharding import local_region
+
+    fn = local_region(local_search, mesh, in_specs, out_specs)
+    fn.in_specs, fn.out_specs = in_specs, out_specs
+    return fn
 
 
 def make_sharded_serve_quantized(mesh, cfg: SearchConfig, *,
@@ -349,6 +360,6 @@ def make_sharded_serve_quantized(mesh, cfg: SearchConfig, *,
 
     bspec = P(tuple(batch_axes))
     s = P(shard_axis)
-    local_search.in_specs = (s, s, s, s, s, P(), bspec, bspec)
-    local_search.out_specs = (bspec, bspec, bspec)
-    return local_search
+    return _global_view(local_search, mesh,
+                        (s, s, s, s, s, P(), bspec, bspec),
+                        (bspec, bspec, bspec))

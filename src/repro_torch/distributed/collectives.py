@@ -15,7 +15,19 @@ of tensors, flattened in the reference's ``tree_flatten`` order (dict keys
 sorted).
 
 :func:`all_gather` and :func:`all_reduce` are the primitives every
-collective of the port goes through.  A gloo group takes CUDA tensors only
+collective of the port goes through.  They carry no gradient; three
+autograd rules carry gradients through a local-view region (a
+``local_map`` body, one rank's share of a ``shard_map``):
+
+* :func:`psum`: all-reduce forward, identity backward: the region's
+  output leaves it replicated over the group, and each rank's gradient of
+  it is the whole gradient;
+* :func:`copy_to`: identity forward, all-reduce backward: a replicated
+  input enters work that is split over the group (each rank computes a
+  part of its gradient);
+* :func:`all_gather_cat`: the members' tensors joined along a dim,
+  reduce-scatter backward (each rank keeps the sum of its block's
+  gradients).  A gloo group takes CUDA tensors only
 for some collectives, so on a gloo group these copy a CUDA tensor to host
 memory, run the collective there and copy the result back (always, and
 only for gloo: ``Mesh.host_staged``); NCCL runs on the card's tensors.
@@ -46,6 +58,56 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     buf = t.cpu().clone() if _staged(t, group) else t.clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, t.shape[dim]
+        return torch.cat(all_gather(t, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank = dist.get_rank(ctx.group)
+        summed = all_reduce(g.contiguous(), ctx.group)
+        return summed.narrow(ctx.dim, rank * ctx.size, ctx.size), None, None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` (``jax.lax.psum``); identity backward."""
+    return _Psum.apply(t, group)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` unchanged; its gradient summed over ``group``."""
+    return _CopyTo.apply(t, group)
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The members' ``t`` joined along ``dim`` in group-rank order
+    (``jax.lax.all_gather(..., tiled=True)``); reduce-scatter backward."""
+    return _AllGatherCat.apply(t, group, dim)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

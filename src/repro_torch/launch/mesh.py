@@ -11,6 +11,9 @@ ranks follow the axis index (the counterpart of ``jax.lax.axis_index``).
   timeout: a hung rank fails the run) and builds the mesh;
 * :func:`make_host_mesh` and :func:`make_production_mesh` build the
   reference's shapes over a process group that is already started;
+* :func:`dry_mesh` builds the production mesh at rank 0 over a fake
+  process group on the ``meta`` device, whose collectives move nothing:
+  the dry run's mesh (the reference forces 512 host devices for it);
 * :func:`spawn` runs ``fn(mesh, *args)`` in one fresh process per rank
   (``torch.multiprocessing``, ``"spawn"`` mode, a file rendezvous in a
   fresh temporary directory), joins them under a timeout, and raises in
@@ -21,6 +24,12 @@ ranks follow the axis index (the counterpart of ``jax.lax.axis_index``).
 NCCL takes one rank a card; gloo takes any number of ranks and CPU or
 CUDA tensors (the collectives of ``distributed/collectives.py`` stage a
 gloo group's CUDA tensors through host memory).
+
+``Mesh.device_mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
+over the same ranks, axes and subgroups: the mesh of the DTensors that
+play the reference's global-view arrays (``distributed/sharding.py``
+``distribute``), and of the ``local_map`` regions that play its
+``shard_map``s.
 """
 from __future__ import annotations
 
@@ -83,6 +92,12 @@ class Mesh:
             if dist.get_rank(self.groups[axis]) != self.coords[axis]:
                 raise RuntimeError(f"group rank along {axis!r} is not the "
                                    f"axis index")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        self.device_mesh = DeviceMesh.from_group(
+            [self.groups[a] for a in axes],
+            "cuda" if self.device.type == "cuda" else "cpu",
+            mesh=torch.from_numpy(grid), mesh_dim_names=axes)
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -167,6 +182,30 @@ def make_production_mesh(*, multi_pod: bool = False,
                          f"{math.prod(shape)} ranks, the group has "
                          f"{dist.get_world_size()}")
     return Mesh(shape, axes, device)
+
+
+def dry_mesh(multi_pod: bool = False, *, shape: Sequence[int] = None,
+             axes: Sequence[str] = None) -> Mesh:
+    """The production mesh (or ``shape`` over ``axes``) at rank 0 of a
+    fake process group of 256 (512) ranks, on the ``meta`` device: the
+    collectives of a program over it complete at once and move nothing,
+    and its tensors hold no memory.  Starts the fake group unless one of
+    that size is running."""
+    if shape is None:
+        shape, axes = PRODUCTION_SHAPES[multi_pod]
+    world = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("dry_mesh needs the fake process group; a "
+                               f"{dist.get_backend()} group is running")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    return Mesh(shape, axes, "meta")
 
 
 # --------------------------------------------------------------------------

@@ -21,7 +21,8 @@ Jobs (``kind``):
   alone at the same shapes and count);
 * ``kmeans``: ``steps`` timed ``kmeans_sharded_step`` calls (after one
   untimed, unless ``warm`` is False) on the rank's rows of ``x.npy`` from
-  ``cents.npy``, then the counts from ``kmeans_sharded_sums``;
+  ``cents.npy`` (with ``global_view``, as DTensors of the global arrays),
+  then the counts from ``kmeans_sharded_sums``;
 * ``collectives``: ``compressed_psum_tree`` of a tree held alike on every
   rank, ``bucketed_psum`` of the tree times (rank + 1), and
   ``compressed_psum`` twice with error feedback;
@@ -43,6 +44,8 @@ Jobs (``kind``):
   else ``forward(mesh=...)`` on its block of ``<work>/tokens.npy``, in
   ``dtype`` (default: the config's).  Rank 0 writes the gathered output,
   as float32, to ``<work>/<out>.npy``;
+* ``cell``: one step of a ``launch/cells.py`` cell on the mesh, its
+  arguments DTensors of the global arrays (:func:`cell`);
 * ``gnn_rowdp``: GraphCast's ``forward_rowdp`` from the parameters in
   ``<work>/<params>.pt`` on the rank's rows of ``node_feats.npy`` and its
   block of the dst-sorted ``src.npy``/``dst.npy`` (and ``edge_mask.npy``
@@ -218,16 +221,28 @@ def kmeans(mesh: Mesh, job: dict) -> dict:
         mesh.device)
     fused = job.get("fused", True)
     steps = job.get("steps", 1)
+    xs, cs = x, cents
+    if job.get("global_view"):     # DTensors: the step's local_map region
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.sharding import placements
+
+        xs = DTensor.from_local(x, mesh.device_mesh,
+                                placements(P(data_axes), mesh),
+                                run_check=False)
+        cs = DTensor.from_local(cents, mesh.device_mesh,
+                                placements(P(), mesh), run_check=False)
     if job.get("warm", True):
-        kmeans_sharded_step(mesh, x, cents, cents.shape[0], fused)
+        kmeans_sharded_step(mesh, xs, cs, cents.shape[0], fused)
     _sync(mesh)
     dist.barrier()
     LAUNCHES.reset()
     t0 = time.perf_counter()
     for _ in range(steps):
-        new = kmeans_sharded_step(mesh, x, cents, cents.shape[0], fused)
+        new = kmeans_sharded_step(mesh, xs, cs, cents.shape[0], fused)
     _sync(mesh)
     wall = time.perf_counter() - t0
+    new = new.to_local() if hasattr(new, "to_local") else new
     _, counts = kmeans_sharded_sums(mesh, x, cents, fused)
     launches = LAUNCHES.snapshot()
     res = {"ms_per_step": wall / steps * 1e3, "launches": launches,
@@ -423,5 +438,53 @@ def gnn_rowdp(mesh: Mesh, job: dict) -> dict:
     return _gathered(mesh, job, gather_axes(out, mesh, axes), secs)
 
 
+def cell(mesh: Mesh, job: dict) -> dict:
+    """One run of ``launch/cells.py``'s cell ``arch`` (an ``ArchDef``) at
+    its shape named ``cell`` (``variant``, default "base") on this mesh
+    (the job's ``shape`` and ``axes``, as every job's): the global
+    arguments ``torch.load``'ed from ``<work>/<args>.pt`` (the cell's
+    ``abstract_args`` structure, on every rank) placed as DTensors by the
+    cell's ``in_specs``, the cell's function run ``steps`` times (default
+    1), each on the state the last one returned, each timed; rank 0 writes
+    the first run's outputs' global values to ``<work>/<out>.pt``."""
+    from repro_torch.distributed.collectives import tree_map
+    from repro_torch.distributed.sharding import distribute, full, \
+        implicit_replication
+    from repro_torch.launch.cells import build_cell
+
+    c = build_cell(job["arch"], job["cell"], mesh,
+                   variant=job.get("variant", "base"))
+    glob = torch.load(os.path.join(job["work"], f"{job['args']}.pt"),
+                      weights_only=False)
+    glob = tree_map(lambda t: t.to(mesh.device), glob)
+    args = tuple(distribute(a, s, mesh) for a, s in zip(glob, c.in_specs))
+    del glob
+    steps = job.get("steps", 1)
+    secs, first = [], None
+    with implicit_replication():
+        for _ in range(steps):
+            _sync(mesh)
+            LAUNCHES.reset()
+            t0 = time.perf_counter()
+            out = c.fn(*args)
+            _sync(mesh)
+            secs.append(time.perf_counter() - t0)
+            if first is None:
+                first = full(out)
+            if c.donate:                       # the next step's state
+                args = tuple(out[j] if j in c.donate else a
+                             for j, a in enumerate(args))
+        out = first
+    if mesh.rank == 0:
+        torch.save(tree_map(lambda t: t.cpu(), out),
+                   os.path.join(job["work"], f"{job['out']}.pt"))
+    peak = torch.cuda.max_memory_allocated(mesh.device) \
+        if mesh.device.type == "cuda" else 0
+    return {"rank": mesh.rank, "seconds": secs, "peak_bytes": peak,
+            "launches": LAUNCHES.snapshot(),
+            "host_staged": mesh.host_staged}
+
+
 _KINDS = {"serve": serve, "kmeans": kmeans, "collectives": collectives,
-          "recsys": recsys, "moe": moe, "gnn_rowdp": gnn_rowdp}
+          "recsys": recsys, "moe": moe, "gnn_rowdp": gnn_rowdp,
+          "cell": cell}

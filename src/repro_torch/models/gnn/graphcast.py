@@ -22,10 +22,24 @@ kernel accumulates in parallel on the other device); the gathers are
 Per GraphCast: an encoder MLP lifts the input features to d_hidden;
 ``n_layers`` processor blocks of (edge MLP -> aggregate -> node MLP) with
 residuals and LayerNorm, each recomputed in the backward (remat); a
-decoder MLP emits n_vars outputs per node.  ``forward_rowdp`` is the
-row-sharded forward over a :class:`repro_torch.launch.mesh.Mesh` (forward
-only).  ``sharded_mp`` with a mesh and ``make_train_step(mesh=...)`` are
-ROADMAP item 4.
+decoder MLP emits n_vars outputs per node.
+
+On a :class:`repro_torch.launch.mesh.Mesh` the arguments are DTensors of
+the global arrays placed by the reference's specs (global view), and each
+of the reference's ``shard_map`` regions is a ``local_map``
+(``distributed/sharding.py`` ``local_region``):
+
+* ``forward_rowdp``: node rows and dst-sorted edges split over every mesh
+  axis, one all-gather of the hidden rows a layer (a reduce-scatter in
+  the backward); it also takes each rank's blocks as plain tensors;
+* ``sharded_mp``: the hidden dim over ``model``; each rank gathers its
+  edges' endpoints from its columns (``_gather_sharded``) and
+  scatter-adds its edges into every node, summed over the batch axes
+  (``_scatter_sum_sharded``);
+* the base layout: the weights' hidden dim over ``model`` by placements,
+  DTensor's rules for the rest, and the scatter-add (which DTensor has no
+  rule for) in the same region as ``sharded_mp``'s;
+* ``forward_batched``: each rank's graphs whole, one region.
 """
 from __future__ import annotations
 
@@ -36,10 +50,6 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
-
-MESH_ERROR = ("{what} is not ported yet (ROADMAP item 4, with "
-              "launch/cells.py, the only caller of it in the reference)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
@@ -159,7 +169,7 @@ def segment_sum(m: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     [0, n) dropped, as ``jax.ops.segment_sum`` drops them), in a fixed
     order on either device (module doc)."""
     ok = _in_range(ids, n)
-    if not bool(ok.all()):
+    if m.device.type != "meta" and not bool(ok.all()):   # meta: no values
         m, ids = m[ok], ids[ok]
     out = torch.zeros((n,) + tuple(m.shape[1:]), dtype=m.dtype,
                       device=m.device)
@@ -200,10 +210,61 @@ def _update(h: torch.Tensor, agg: torch.Tensor, lp: dict) -> torch.Tensor:
     return _layer_norm(h + upd, lp["ln_node"])
 
 
-def _block(h, lp, src, dst, edge_mask, cfg: GNNConfig):
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _gather_sharded(h, idx, mesh):
+    """``h[idx]``: h (N, F) P(None, "model"), idx (E,) over the batch axes
+    -> (E, F) P(ba, "model"); each rank gathers from its own columns (a
+    plain gather of column-sharded rows would all-gather h over
+    ``model``).  h's gradient: each rank's part, summed over the batch
+    axes."""
+    from repro_torch.distributed.sharding import P, axes_of, batch_axes, \
+        entry_of, local_region, partial_over
+
+    ba = entry_of(batch_axes(mesh))
+    hs = P(None, "model")
+    return local_region(lambda h_l, i_l: F.embedding(i_l, h_l), mesh,
+                        (hs, P(ba)), (P(ba, "model"),),
+                        (partial_over(hs, mesh, axes_of(ba)), None))(h, idx)
+
+
+def _scatter_sum_sharded(m, dst, n: int, mesh):
+    """Edge messages (E, F) over the batch axes (F over ``model`` where m
+    is) scatter-added into n node rows: a local segment sum a rank, then
+    one ``psum`` over the batch axes -> (N, F) P(None, F's axis)."""
+    from repro_torch.distributed.collectives import psum
+    from repro_torch.distributed.sharding import P, axes_of, batch_axes, \
+        entry_of, local_region, sharded_axes
+
+    ba = entry_of(batch_axes(mesh))
+    f_ax = "model" if "model" in sharded_axes(m, 1) else None
+
+    def local(m_l, dst_l):
+        part = segment_sum(m_l, dst_l, n)
+        for ax in axes_of(ba):
+            part = psum(part, mesh.group(ax))
+        return part
+
+    return local_region(local, mesh, (P(ba, f_ax), P(ba)),
+                        (P(None, f_ax),))(m, dst)
+
+
+def _block(h, lp, src, dst, edge_mask, cfg: GNNConfig, mesh=None):
     n = h.shape[0]
-    m = _messages(F.embedding(src, h), F.embedding(dst, h), lp, edge_mask)
-    if cfg.aggregator == "sum":
+    on_mesh = mesh is not None and _is_dtensor(h)
+    if on_mesh and cfg.sharded_mp:
+        m = _messages(_gather_sharded(h, src, mesh),
+                      _gather_sharded(h, dst, mesh), lp, edge_mask)
+    else:
+        m = _messages(F.embedding(src, h), F.embedding(dst, h), lp,
+                      edge_mask)
+    if on_mesh and cfg.aggregator == "sum":
+        agg = _scatter_sum_sharded(m, dst, n, mesh)
+    elif cfg.aggregator == "sum":
         agg = segment_sum(m, dst, n)
     elif cfg.aggregator == "max":
         agg = segment_max(m, dst, n)
@@ -226,24 +287,55 @@ def forward(
     mesh=None,
 ) -> torch.Tensor:
     """Returns per-node predictions (N, n_vars)."""
-    if cfg.sharded_mp and mesh is not None:
-        raise NotImplementedError(MESH_ERROR.format(
-            what="GraphCast's sharded message passing (sharded_mp)"))
+    if mesh is not None and not _is_dtensor(node_feats):
+        raise TypeError("forward(mesh=...) takes the global arrays as "
+                        "DTensors (distributed/sharding.py distribute)")
     src, dst = src.long(), dst.long()
-    h = _mlp(node_feats.to(cfg.dtype), params["encoder"])
+    hold = _node_hold(node_feats, mesh)
+    h = hold(_mlp(node_feats.to(cfg.dtype), params["encoder"]))
     for li in range(cfg.n_layers):
         lp = _layer(params["proc"], li)
         if torch.is_grad_enabled():
-            h = checkpoint(_block, h, lp, src, dst, edge_mask, cfg,
+            h = checkpoint(_block, h, lp, src, dst, edge_mask, cfg, mesh,
                            use_reentrant=False)
         else:
-            h = _block(h, lp, src, dst, edge_mask, cfg)
+            h = _block(h, lp, src, dst, edge_mask, cfg, mesh)
+        h = hold(h)
     return _mlp(h, params["decoder"])
 
 
-def forward_batched(params, node_feats, src, dst, cfg, edge_mask=None):
+def _node_hold(node_feats, mesh):
+    """On a mesh, the node states held whole on every rank between blocks
+    (the row-parallel products' partial sums reduced), their gradient too:
+    DTensor's own plan splits the node rows over ``data`` with partial
+    sums over ``model``, which the card's torch cannot carry into the
+    next product."""
+    if mesh is None or not _is_dtensor(node_feats):
+        return lambda h: h
+    from repro_torch.distributed.sharding import P, constrain
+
+    return lambda h: constrain(h, P(None, None), mesh)
+
+
+def forward_batched(params, node_feats, src, dst, cfg, edge_mask=None,
+                    mesh=None):
     """(B, N, F) graphs with per-graph edge lists (B, E): each graph's node
-    ids offset by b * N into one flat graph."""
+    ids offset by b * N into one flat graph.  On a mesh (DTensors, the
+    graphs split over the batch axes) each rank runs its graphs whole with
+    the weights gathered (one region)."""
+    if mesh is not None and _is_dtensor(node_feats):
+        from repro_torch.distributed.sharding import P, entry_of, \
+            local_region, partial_over, sharded_axes
+
+        ba = sharded_axes(node_feats, 0)
+        b_ = entry_of(ba)
+        per_graph = (P(b_, None, None), P(b_, None), P(b_, None),
+                     P(b_, None))
+        return local_region(
+            lambda p, nf, s_, d_, e_: forward_batched(p, nf, s_, d_, cfg, e_),
+            mesh, (P(),) + per_graph, (P(b_, None, None),),
+            (partial_over(P(), mesh, ba), None, None, None, None))(
+                params, node_feats, src, dst, edge_mask)
     b, n = node_feats.shape[:2]
     off = (torch.arange(b, device=src.device) * n)[:, None]
     if edge_mask is None:
@@ -256,18 +348,34 @@ def forward_batched(params, node_feats, src, dst, cfg, edge_mask=None):
     return out.reshape(b, n, -1)
 
 
-@torch.no_grad()
 def forward_rowdp(params, node_feats, src, dst, cfg, mesh, edge_mask=None):
-    """Row-DP message passing over all mesh axes flattened (forward only).
+    """Row-DP message passing over all mesh axes flattened.
 
     Each rank passes its block: ``node_feats`` its rows (the rank's
     position in the flattened mesh times the row count is the first),
     ``src``/``dst``/``edge_mask`` its edges, which by the data pipeline's
     contract all have dst in its row range (edges sorted by dst).  The
-    only collective is one tiled all-gather of the hidden rows a layer;
-    the scatter is local.  Returns the rank's rows of predictions."""
-    from repro_torch.distributed.sharding import gather_axes
+    only collective is one tiled all-gather of the hidden rows a layer
+    (a reduce-scatter of their gradient); the scatter is local.  Returns
+    the rank's rows of predictions.  Given DTensors (the global arrays,
+    replicated weights) it runs as the reference's ``shard_map``, the
+    weights' gradients partial sums over every axis."""
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over
 
+    axes = tuple(mesh.axis_names)
+    rows_spec, e_spec = P(axes, None), P(axes)
+    if edge_mask is None and _is_dtensor(node_feats):
+        edge_mask = torch.ones(src.shape, dtype=torch.bool,
+                               device=src.device)
+    return local_region(
+        lambda nf, s_, d_, e_, p: _rowdp_local(p, nf, s_, d_, cfg, mesh, e_),
+        mesh, (rows_spec, e_spec, e_spec, e_spec, P()), (rows_spec,),
+        (None, None, None, None, partial_over(P(), mesh, axes)))(
+            node_feats, src, dst, edge_mask, params)
+
+
+def _rowdp_local(params, node_feats, src, dst, cfg, mesh, edge_mask):
     axes = tuple(mesh.axis_names)
     idx = 0
     for a in axes:
@@ -278,12 +386,23 @@ def forward_rowdp(params, node_feats, src, dst, cfg, mesh, edge_mask=None):
     h_l = _mlp(node_feats.to(cfg.dtype), params["encoder"])   # (rows, dh)
     for li in range(cfg.n_layers):
         lp = _layer(params["proc"], li)
-        h_full = gather_axes(h_l, mesh, axes)
-        m = _messages(F.embedding(src, h_full), F.embedding(dst, h_full),
-                      lp, edge_mask)
-        # dst-sorted contract: every dst is in [lo, lo + rows)
-        h_l = _update(h_l, segment_sum(m, dst - lo, rows), lp)
+        if torch.is_grad_enabled():
+            h_l = checkpoint(_rowdp_block, h_l, lp, src, dst, edge_mask,
+                             mesh, axes, lo, use_reentrant=False)
+        else:
+            h_l = _rowdp_block(h_l, lp, src, dst, edge_mask, mesh, axes, lo)
     return _mlp(h_l, params["decoder"])
+
+
+def _rowdp_block(h_l, lp, src, dst, edge_mask, mesh, axes, lo: int):
+    from repro_torch.distributed.sharding import gather_axes
+
+    rows = h_l.shape[0]
+    h_full = gather_axes(h_l, mesh, axes)
+    m = _messages(F.embedding(src, h_full), F.embedding(dst, h_full), lp,
+                  edge_mask)
+    # dst-sorted contract: every dst is in [lo, lo + rows)
+    return _update(h_l, segment_sum(m, dst - lo, rows), lp)
 
 
 def mse_loss(params, node_feats, src, dst, targets, cfg,
@@ -306,37 +425,23 @@ def make_train_step(cfg: GNNConfig, opt_cfg=None, batched: bool = False,
                     mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` holds ``node_feats``, ``src``, ``dst``,
-    ``targets`` and optionally ``edge_mask`` and ``node_mask``."""
-    from repro_torch.distributed.collectives import tree_flatten, \
-        tree_unflatten
+    ``targets`` and optionally ``edge_mask`` and ``node_mask``.  With a
+    ``mesh`` every argument is a DTensor placed by the cell's specs
+    (``row_dp``: ``forward_rowdp``; ``sharded_mp``: its gather and
+    scatter regions; ``batched``: each rank's graphs)."""
     from repro_torch.optim import adamw
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_ERROR.format(
-            what="make_train_step(mesh=...)"))
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def loss(p, batch):
         if batched:
             pred = forward_batched(p, batch["node_feats"], batch["src"],
                                    batch["dst"], cfg,
-                                   batch.get("edge_mask"))
+                                   batch.get("edge_mask"), mesh)
             return torch.mean((pred.float()
                                - batch["targets"].float()) ** 2)
         return mse_loss(p, batch["node_feats"], batch["src"], batch["dst"],
                         batch["targets"], cfg, batch.get("edge_mask"),
-                        batch.get("node_mask"))
+                        batch.get("node_mask"), mesh)
 
-    def train_step(params, opt_state, batch):
-        leaves, structure = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            lval = loss(tree_unflatten(structure, live), batch)
-            grads = torch.autograd.grad(lval, live)
-        params, opt_state, metrics = adamw.apply(
-            params, tree_unflatten(structure, list(grads)), opt_state,
-            opt_cfg)
-        metrics["loss"] = lval.detach()
-        return params, opt_state, metrics
-
-    return train_step
+    return adamw.make_step(loss, opt_cfg, mesh=mesh)

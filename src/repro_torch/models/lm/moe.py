@@ -15,8 +15,10 @@ whose ``model`` axis has TP > 1 ranks, each rank passes its own experts
 (``moe_gate`` etc. hold E/TP of them, ``e0 = rank * E/TP``; with ``fsdp``
 also its ``data`` block of d_ff, gathered first) and its batch block; the
 partial outputs are summed over ``mesh.group("model")``, as the
-reference's ``shard_map`` body does.  That sum is not differentiable:
-training runs without a mesh.
+reference's ``shard_map`` body does, with gradients
+(``distributed/collectives.py`` ``psum``, ``copy_to``,
+``all_gather_cat``).  Given DTensors (the global arrays) the same body
+runs as a ``local_map``.
 
 Ties: the router's top-k takes the lowest expert index first among equal
 probabilities (``lax.top_k``), and the capacity race keeps the entry order
@@ -180,10 +182,60 @@ def router(x: torch.Tensor, lp: dict, moe: MoEConfig):
     return logits, top_p, top_e
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _model_size(mesh) -> int:
     if mesh is not None and "model" in mesh.axis_names:
         return mesh.size("model")
     return 1
+
+
+def _expert_parallel(moe: MoEConfig, mesh, fsdp: bool):
+    """The expert-parallel body over this rank's experts (the reference's
+    ``shard_map`` region): tokens and router picks as they are on the
+    rank, ``copy_to`` over ``model`` on the tokens and probabilities
+    (each model rank computes the part of their gradient that its experts
+    give), the partial outputs ``psum``'d over ``model``; with ``fsdp``
+    each expert weight's ``data`` block gathered first (a reduce-scatter
+    in the backward).  Given DTensors it runs as a ``local_map`` with the
+    reference's specs, the weights' gradients partial sums over the batch
+    axes."""
+    from repro_torch.distributed.collectives import all_gather_cat, \
+        copy_to, psum
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over
+
+    tp = mesh.size("model")
+    e_loc = moe.e // tp
+
+    def body(x2d, probs2, choice2, gate, up, down):
+        if gate.shape[0] != e_loc:
+            raise ValueError(f"rank holds {gate.shape[0]} experts; mesh "
+                             f"model={tp} needs {e_loc}")
+        group = mesh.group("model")
+        x2d, probs2 = copy_to(x2d, group), copy_to(probs2, group)
+        if fsdp:  # ZeRO-3: gather the weight shard over `data` per use
+            dgroup = mesh.group("data")
+            gate = all_gather_cat(gate, dgroup, dim=2)
+            up = all_gather_cat(up, dgroup, dim=2)
+            down = all_gather_cat(down, dgroup, dim=1)
+        e0 = mesh.index("model") * e_loc
+        cap = max(1, int(math.ceil(x2d.shape[0] * moe.top_k / moe.e
+                                   * moe.capacity_factor)))
+        y = _local_expert_ffn(x2d, probs2, choice2, gate, up, down, e0, cap)
+        return psum(y, group)
+
+    ba = tuple(a for a in mesh.axis_names if a != "model")
+    tok = P(ba)
+    wdp = "data" if fsdp else None
+    gu, dn = P("model", None, wdp), P("model", wdp, None)
+    g = lambda spec: partial_over(spec, mesh, ba)
+    return local_region(body, mesh, (tok, tok, tok, gu, gu, dn), (tok,),
+                        (None, None, None, g(gu), g(gu), g(dn)))
 
 
 def moe_ffn(
@@ -208,28 +260,17 @@ def moe_ffn(
                 "moe_ffn on a mesh with one model rank: the reference's "
                 "capacity race runs over the global batch; use a mesh "
                 "whose model axis splits the experts")
-        capacity = max(1, int(math.ceil(b * s * moe.top_k / moe.e
-                                        * moe.capacity_factor)))
-        routed = _local_expert_ffn(x2d, probs2, choice2, gate, up, down, 0,
-                                   capacity)
+        if mesh is not None and _is_dtensor(x2d):     # a one-rank mesh
+            routed = _expert_parallel(moe, mesh, fsdp)(x2d, probs2, choice2,
+                                                       gate, up, down)
+        else:
+            capacity = max(1, int(math.ceil(b * s * moe.top_k / moe.e
+                                            * moe.capacity_factor)))
+            routed = _local_expert_ffn(x2d, probs2, choice2, gate, up, down,
+                                       0, capacity)
     else:
-        from repro_torch.distributed.collectives import all_gather, \
-            all_reduce
-
-        e_loc = moe.e // tp
-        if gate.shape[0] != e_loc:
-            raise ValueError(f"rank holds {gate.shape[0]} experts; mesh "
-                             f"model={tp} needs {e_loc}")
-        if fsdp:  # ZeRO-3: gather the weight shard over `data` per use
-            group = mesh.group("data")
-            gate = torch.cat(all_gather(gate, group), dim=2)
-            up = torch.cat(all_gather(up, group), dim=2)
-            down = torch.cat(all_gather(down, group), dim=1)
-        e0 = mesh.index("model") * e_loc
-        cap = max(1, int(math.ceil(b * s * moe.top_k / moe.e
-                                   * moe.capacity_factor)))
-        y = _local_expert_ffn(x2d, probs2, choice2, gate, up, down, e0, cap)
-        routed = all_reduce(y, mesh.group("model"))
+        routed = _expert_parallel(moe, mesh, fsdp)(x2d, probs2, choice2,
+                                                   gate, up, down)
     out = routed.reshape(b, s, d)
 
     if moe.n_shared:

@@ -26,12 +26,24 @@ fused attention, whose bf16 arithmetic and masking differ), RMSNorm and
 the rotary angles in float32, the embedding scale and the residual stream
 in the model's dtype, the logits rounded to it before the float32 loss.
 
-``forward(mesh=...)`` on a :class:`repro_torch.launch.mesh.Mesh` runs the
-dense layers whole on each rank (its batch block) and the MoE layers with
-expert parallelism; the GSPMD-only switches (``pure_dp``,
-``seq_parallel``, ``fsdp``'s layout) only annotate the reference's
-sharding and change nothing here.  ``make_train_step`` takes no mesh
-(ROADMAP item 4).
+On a :class:`repro_torch.launch.mesh.Mesh` the functions take either
+form of the reference's arrays:
+
+* local view (plain tensors, each rank's batch block): ``forward`` runs
+  the dense layers whole on each rank and the MoE layers with expert
+  parallelism;
+* global view (DTensors placed by ``param_specs``, as
+  ``make_train_step(mesh=...)``, ``prefill_step`` and ``decode_step``
+  take them from ``launch/cells.py``): DTensor partitions the plain code
+  (Megatron TP over ``model`` in the three head regimes, ``fsdp``'s and
+  ``pure_dp``'s weight layouts, ``seq_parallel`` as the residual
+  stream's spec), the residual stream is held to its spec after each
+  sub-layer (its gradient too, as ``with_sharding_constraint`` holds
+  it), and ``local_map`` regions run where DTensor's own rules would
+  replicate or break: the vocab-sharded lookup and cross-entropy, the
+  attention core of the head and Dh regimes, the Dh-sharded projections,
+  the MoE expert-parallel body and the split-KV cache writes (module
+  section "the mesh").
 """
 from __future__ import annotations
 
@@ -44,12 +56,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import axes_of, entry_of
+
 from .moe import MoEConfig, moe_ffn, moe_param_shapes, moe_param_specs
-
-MESH_TRAIN_ERROR = ("make_train_step(mesh=...) is not ported yet (ROADMAP "
-                    "item 4, with launch/cells.py): the expert-parallel "
-                    "all-reduce is not differentiable")
-
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
@@ -313,13 +322,19 @@ def _attend(
     kpos: torch.Tensor,     # (Tk,) (or (B, Tk) for ring buffers)
     kvalid: torch.Tensor,   # (Tk,) or (B, Tk) bool
     window: int,            # 0 = global
+    dh_group=None,          # the Dh-sharded region's group (module doc)
+    d_head: int = 0,        # the whole head dim there (0: q's)
 ) -> torch.Tensor:
     b, tq, h, dh = q.shape
     kvh = k.shape[2]
     rep = h // kvh
     qg = q.reshape(b, tq, kvh, rep, dh)        # head h = kv * rep + r
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg.float(),
-                          k.float()) / math.sqrt(dh)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), k.float())
+    if dh_group is not None:
+        from repro_torch.distributed.collectives import psum
+
+        scores = psum(scores, dh_group)     # partial over the Dh blocks
+    scores = scores / math.sqrt(d_head or dh)
     if kpos.dim() == 1:
         kp, kv_ok = kpos[None, :], kvalid[None, :]
     else:
@@ -330,6 +345,11 @@ def _attend(
         mask = mask & ((qpos[None, :, None] - kp[:, None, :]) < window)
     scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
+    if dh_group is not None:
+        from repro_torch.distributed.collectives import copy_to
+
+        # each rank's values are a Dh block: its part of probs' gradient
+        probs = copy_to(probs, dh_group)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v.float())
     return out.reshape(b, tq, h, dh).to(q.dtype)
 
@@ -346,13 +366,13 @@ def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention_full(x: torch.Tensor, lp: dict, pos0: int, window: int,
-                   cfg: LMConfig, *, return_kv: bool = False):
+                   cfg: LMConfig, *, return_kv: bool = False, mesh=None):
     """Training/prefill attention over query chunks of ``cfg.q_chunk``
     (one chunk when the sequence does not divide)."""
     b, s, d = x.shape
-    q = _proj(x, lp["wq"])
-    k = _proj(x, lp["wk"])
-    v = _proj(x, lp["wv"])
+    q = _proj_any(x, lp["wq"], mesh)
+    k = _proj_any(x, lp["wk"], mesh)
+    v = _proj_any(x, lp["wv"], mesh)
     pos = pos0 + torch.arange(s, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
@@ -361,9 +381,10 @@ def attention_full(x: torch.Tensor, lp: dict, pos0: int, window: int,
         qc = s  # fall back to unchunked for ragged small shapes
     kvalid = torch.ones((s,), dtype=torch.bool, device=x.device)
     o = torch.cat([
-        _attend(q[:, i:i + qc], k, v, pos[i:i + qc], pos, kvalid, window)
+        _attend_any(q[:, i:i + qc], k, v, pos[i:i + qc], pos, kvalid,
+                    window, lp, mesh)
         for i in range(0, s, qc)], dim=1)
-    out = _out(o, lp["wo"])
+    out = _out_any(o, lp["wo"], mesh)
     if return_kv:
         return out, k, v
     return out
@@ -386,35 +407,60 @@ def _layer(gp: dict, li) -> dict:
 
 
 def group_forward(x: torch.Tensor, gp: dict, cfg: LMConfig, pos0: int,
-                  mesh=None, *, n_in_group: int, all_local: bool = False
-                  ) -> torch.Tensor:
+                  mesh=None, *, n_in_group: int, all_local: bool = False,
+                  res=None) -> torch.Tensor:
     """Run ``n_in_group`` stacked layers.  Unless ``all_local``, the last
-    layer of the group is global and the rest use the sliding window."""
+    layer of the group is global and the rest use the sliding window.
+    On a mesh, ``res`` is the residual stream's spec (:func:`_res_spec`),
+    held after each sub-layer."""
     for li in range(n_in_group):
         lp = _layer(gp, li)
+        if cfg.pure_dp and res is not None:
+            # ZeRO-3: one all-gather of each weight a layer
+            lp = {k: _replicated(w) for k, w in lp.items()}
         is_global = (li == n_in_group - 1) and not all_local
         window = 0 if (is_global or cfg.window == 0) else cfg.window
         h = rms_norm(x, lp["rms1"])
-        x = x + attention_full(h, lp, pos0, window, cfg)
+        x = _hold(x + attention_full(h, lp, pos0, window, cfg, mesh=mesh),
+                  res, mesh)
         h = rms_norm(x, lp["rms2"])
-        x = x + _ffn(h, lp, cfg, mesh)
+        x = _hold(x + _ffn(h, lp, cfg, mesh), res, mesh)
     return x
 
 
 def block_forward(x: torch.Tensor, bp: dict, cfg: LMConfig, pos0: int,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, res=None) -> torch.Tensor:
     """One block = ``period`` layers; layers [0..period-2] local, last
     global."""
-    return group_forward(x, bp, cfg, pos0, mesh, n_in_group=cfg.period)
+    return group_forward(x, bp, cfg, pos0, mesh, n_in_group=cfg.period,
+                         res=res)
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig
+def _embed(params: dict, tokens: torch.Tensor, cfg: LMConfig, mesh=None
            ) -> torch.Tensor:
     """The embedding rows times sqrt(d_model), in the model's dtype (the
-    scale rounded to it first, as a weakly typed scalar is in JAX)."""
-    x = F.embedding(tokens.long(), params["embed"].to(cfg.dtype))
+    scale rounded to it first, as a weakly typed scalar is in JAX).  On a
+    mesh (DTensors) the rows come from the sharded lookup over the
+    vocab-sharded table (``recsys/embedding.py``), the tokens' batch split
+    as they come, never over ``model``."""
+    table = params["embed"].to(cfg.dtype)
+    if mesh is not None and is_dtensor(table):
+        from repro_torch.distributed.sharding import sharded_axes
+        from repro_torch.models.recsys.embedding import \
+            embedding_lookup_sharded
+
+        ba = tuple(a for a in sharded_axes(tokens, 0) if a != "model")
+        x = embedding_lookup_sharded(table, tokens, mesh, ba)
+    else:
+        x = F.embedding(tokens.long(), table)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
                             device=x.device)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
 
 
 def _remat(fn, *args):
@@ -426,16 +472,19 @@ def _remat(fn, *args):
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig, mesh=None
             ) -> torch.Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D)."""
-    x = _embed(params, tokens, cfg)
+    res = _res_spec(tokens, cfg, mesh)
+    x = _hold(_embed(params, tokens, cfg, mesh), res, mesh)
     run = _remat if cfg.remat else (lambda fn, *a: fn(*a))
     for bi in range(cfg.n_blocks):
-        x = run(block_forward, x, _layer(params["layers"], bi), cfg, 0, mesh)
+        x = run(block_forward, x, _layer(params["layers"], bi), cfg, 0, mesh,
+                res)
     if cfg.tail_local:
         def tail_fn(x, gp):
             return group_forward(x, gp, cfg, 0, mesh,
-                                 n_in_group=cfg.tail_local, all_local=True)
+                                 n_in_group=cfg.tail_local, all_local=True,
+                                 res=res)
         x = run(tail_fn, x, params["tail"])
-    return rms_norm(x, params["final_norm"])
+    return _hold(rms_norm(x, params["final_norm"]), res, mesh)
 
 
 def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor
@@ -450,7 +499,8 @@ def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor
 
 
 def chunked_ce_loss(h: torch.Tensor, embed: torch.Tensor,
-                    targets: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+                    targets: torch.Tensor, cfg: LMConfig, mesh=None
+                    ) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V): over S-chunks (each
     recomputed in the backward when ``cfg.remat``)."""
     b, s, d = h.shape
@@ -458,11 +508,231 @@ def chunked_ce_loss(h: torch.Tensor, embed: torch.Tensor,
     if s % qc:
         qc = s
     w = embed.to(cfg.dtype)
-    run = _remat if cfg.remat else (lambda fn, *a: fn(*a))
-    parts = [run(_chunk_loss, h[:, i:i + qc], w, targets[:, i:i + qc])
+    sharded = is_dtensor(h)
+    # on a mesh each rank's chunk logits are (B / dp, qc, V / tp): kept for
+    # the backward, as the reference keeps its chunks' (no remat there)
+    run = _remat if cfg.remat and not sharded else (lambda fn, *a: fn(*a))
+    chunk = _chunk_loss_sharded(mesh) if sharded else _chunk_loss
+    parts = [run(chunk, h[:, i:i + qc], w, targets[:, i:i + qc])
              for i in range(0, s, qc)]
     tot = parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
     return tot / (b * s)
+
+
+# ---------------------------------------------------------------------------
+# the mesh (global view): DTensor placements, and local_map regions where
+# DTensor's own rules would replicate or break
+# ---------------------------------------------------------------------------
+def _res_spec(tokens, cfg: LMConfig, mesh):
+    """The residual stream's spec: the tokens' batch split (both axes for
+    ``pure_dp``), the sequence over ``model`` with ``seq_parallel`` (the
+    reference's ``_sp_constraint``); None off a mesh."""
+    if mesh is None or not is_dtensor(tokens):
+        return None
+    from repro_torch.distributed.sharding import P, sharded_axes
+
+    b = entry_of(sharded_axes(tokens, 0))
+    return P(b, "model", None) if cfg.seq_parallel else P(b, None, None)
+
+
+def _hold(x, res, mesh):
+    """``x`` held to the residual spec, its gradient too (the reference's
+    ``with_sharding_constraint``)."""
+    if res is None:
+        return x
+    from repro_torch.distributed.sharding import constrain
+
+    return constrain(x, res, mesh)
+
+
+def _replicated(w):
+    from torch.distributed.tensor import Replicate
+
+    return w.redistribute(w.device_mesh,
+                          [Replicate()] * w.device_mesh.ndim)
+
+
+def _model_dim(t):
+    """The tensor dim that ``t`` splits over ``model``, or None."""
+    from torch.distributed.tensor import Shard
+
+    names = t.device_mesh.mesh_dim_names
+    p = t.placements[names.index("model")]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def _attend_any(q, k, v, qpos, kpos, kvalid, window, lp, mesh):
+    """:func:`_attend`, on a mesh through the region its layout needs:
+
+    * a cache with its sequence over ``model`` (split-KV decode): the
+      query's heads gathered (one token), then DTensor's rules (the
+      scores' softmax gathers them, the values' product sums over
+      ``model``);
+    * heads over ``model``: each rank attends with its heads and the KV
+      heads they read (``local_map``; DTensor cannot split the sharded
+      head dim into (KV, rep));
+    * ``Dh`` over ``model`` (phi4-mini, llama4-scout): the scores are
+      partial sums over ``Dh``, summed over ``model`` (the reference's
+      O(S^2) score psum), in a ``local_map``;
+    * replicated heads: DTensor's rules."""
+    if mesh is None or not is_dtensor(q):
+        return _attend(q, k, v, qpos, kpos, kvalid, window)
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over, sharded_axes
+
+    b = entry_of(sharded_axes(q, 0))
+    if _model_dim(k) == 1:                       # split-KV cache
+        q = _replicated_over_model(q, b, mesh)
+        return _attend(q, k, v, qpos, kpos, kvalid, window)
+    w_dim = _model_dim(lp["wq"])
+    if w_dim == 1:                               # heads over model
+        h, kvh = q.shape[2], k.shape[2]
+        kv_split = _model_dim(k) == 2
+        qs = P(b, None, "model", None)
+        ks = qs if kv_split else P(b, None, None, None)
+
+        def local(q, k, v):
+            if not kv_split:
+                hl, rp = q.shape[2], h // kvh
+                h0 = mesh.index("model") * hl
+                if (hl % rp and rp % hl) or h0 % min(hl, rp):
+                    raise ValueError(f"{hl} local heads do not align with "
+                                     f"{rp} heads a KV head")
+                lo, hi = h0 // rp, (h0 + hl - 1) // rp + 1
+                k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+            return _attend(q, k, v, qpos, kpos, kvalid, window)
+
+        gk = None if kv_split else partial_over(ks, mesh, ("model",))
+        return local_region(local, mesh, (qs, ks, ks), (qs,),
+                            (None, gk, gk))(q, k, v)
+    if w_dim == 2:                               # Dh over model
+        spec = P(b, None, None, "model")
+        d_head = q.shape[-1]
+        group = mesh.group("model")
+
+        def local(q, k, v):
+            return _attend(q, k, v, qpos, kpos, kvalid, window,
+                           dh_group=group, d_head=d_head)
+
+        return local_region(local, mesh, (spec, spec, spec), (spec,))(
+            q, k, v)
+    return _attend(q, k, v, qpos, kpos, kvalid, window)
+
+
+def _proj_any(x, w, mesh):
+    """:func:`_proj`; with ``w``'s Dh over ``model``, a ``local_map`` of
+    the rank's Dh columns (DTensor's rule for the flattened (H, Dh) would
+    be a strided shard, whose matmul strategy search takes minutes on
+    the three-axis mesh)."""
+    if mesh is None or not is_dtensor(w) or _model_dim(w) != 2:
+        return _proj(x, w)
+    from repro_torch.distributed.collectives import copy_to
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over, sharded_axes
+
+    bax = sharded_axes(x, 0)
+    b = entry_of(bax)
+    group = mesh.group("model")
+    ws = P(None, None, "model")
+    return local_region(lambda x, w: _proj(copy_to(x, group), w), mesh,
+                        (P(b, None, None), ws), (P(b, None, None, "model"),),
+                        (None, partial_over(ws, mesh, bax)))(x, w)
+
+
+def _out_any(o, w, mesh):
+    """:func:`_out`; with ``w``'s Dh over ``model``, each rank's Dh block
+    of the product, ``psum``'d (a ``local_map``, as :func:`_proj_any`)."""
+    if mesh is None or not is_dtensor(w) or _model_dim(w) != 1:
+        return _out(o, w)
+    from repro_torch.distributed.collectives import psum
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over, sharded_axes
+
+    bax = sharded_axes(o, 0)
+    b = entry_of(bax)
+    group = mesh.group("model")
+    ws = P(None, "model", None)
+    return local_region(lambda o, w: psum(_out(o, w), group), mesh,
+                        (P(b, None, None, "model"), ws), (P(b, None, None),),
+                        (None, partial_over(ws, mesh, bax)))(o, w)
+
+
+def _replicated_over_model(t, b, mesh):
+    from repro_torch.distributed.sharding import P, constrain
+
+    return constrain(t, P(b, *([None] * (t.dim() - 1))), mesh)
+
+
+def _cache_write(c, new, slot: int, mesh):
+    """``c[:, slot] = new`` in place; on a mesh, the rank whose block of
+    the cache's sequence holds ``slot`` writes it (``local_map``: an index
+    into a sharded dim has no in-place DTensor rule)."""
+    if mesh is None or not is_dtensor(c):
+        c[:, slot] = new
+        return c
+    from repro_torch.distributed.sharding import P, local_region, \
+        sharded_axes
+
+    seq_axes = sharded_axes(c, 1)
+    b = entry_of(sharded_axes(c, 0))
+    cspec = P(b, entry_of(seq_axes), None, None)
+
+    def local(c, new):
+        idx = 0
+        for a in seq_axes:
+            idx = idx * mesh.size(a) + mesh.index(a)
+        lo = idx * c.shape[1]
+        if lo <= slot < lo + c.shape[1]:
+            c[:, slot - lo] = new
+        return c
+
+    return local_region(local, mesh, (cspec, P(b, None, None)), (cspec,))(
+        c, new)
+
+
+def _chunk_loss_sharded(mesh):
+    """:func:`_chunk_loss` over the vocab-sharded embedding (Megatron's
+    vocab-parallel cross-entropy, in a ``local_map``): each rank's logits
+    over its vocab rows, the log-sum-exp from the ranks' maxima and
+    ``psum``'d exponent sums, the gold logit ``psum``'d; the result this
+    rank's batch block's sum, a partial sum over the batch axes.
+    DTensor's own log-sum-exp over a sharded vocab gathers the whole
+    (B, S, V) logits."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.distributed.collectives import all_gather_cat, \
+        copy_to, psum
+    from repro_torch.distributed.sharding import P, local_region, \
+        partial_over
+
+    group = mesh.group("model")
+    batch = tuple(a for a in mesh.axis_names if a != "model")
+
+    def local(hc, w, tc):
+        hc = copy_to(hc, group)
+        logits = (hc @ w.T).float()                   # (B, S, V / tp)
+        m = all_gather_cat(torch.amax(logits, dim=-1, keepdim=True).detach(),
+                           group, dim=-1).amax(dim=-1, keepdim=True)
+        se = psum(torch.sum(torch.exp(logits - m), dim=-1), group)
+        logz = m[..., 0] + torch.log(se)
+        lo = mesh.index("model") * w.shape[0]
+        vocab_ids = lo + torch.arange(w.shape[0], device=logits.device)
+        gold = psum(torch.sum(torch.where(vocab_ids == tc[..., None],
+                                          logits, 0.0), dim=-1), group)
+        return torch.sum(logz - gold)
+
+    def chunk(hc, w, tc):
+        from repro_torch.distributed.sharding import sharded_axes
+
+        b = entry_of(tuple(a for a in sharded_axes(hc, 0) if a != "model"))
+        hs, ts, ws = P(b, None, None), P(b, None), P("model", None)
+        out = [Partial() if a in axes_of(b) else Replicate()
+               for a in mesh.axis_names]
+        gw = partial_over(ws, mesh, batch)
+        return local_region(local, mesh, (hs, ws, ts), (out,),
+                            (None, gw, None))(hc, w, tc)
+
+    return chunk
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +741,7 @@ def chunked_ce_loss(h: torch.Tensor, embed: torch.Tensor,
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: LMConfig, mesh=None
             ) -> torch.Tensor:
     h = forward(params, tokens[:, :-1], cfg, mesh)
-    return chunked_ce_loss(h, params["embed"], tokens[:, 1:], cfg)
+    return chunked_ce_loss(h, params["embed"], tokens[:, 1:], cfg, mesh)
 
 
 def make_train_step(cfg: LMConfig, opt_cfg=None, mesh=None,
@@ -480,29 +750,14 @@ def make_train_step(cfg: LMConfig, opt_cfg=None, mesh=None,
     metrics)``: the loss's gradient by autograd, then
     :func:`repro_torch.optim.adamw.apply`.  ``donate`` updates the given
     parameters and moments in place (the caller must not reuse them), as
-    a jitted step that donates its buffers would."""
-    from repro_torch.distributed.collectives import tree_flatten, \
-        tree_unflatten
+    a jitted step that donates its buffers would.  With a ``mesh`` the
+    arguments are DTensors placed by ``param_specs``, ``opt_specs`` and
+    the tokens' batch spec (``adamw.make_step``)."""
     from repro_torch.optim import adamw
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_TRAIN_ERROR)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-
-    def train_step(params, opt_state, tokens):
-        leaves, structure = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = loss_fn(tree_unflatten(structure, live), tokens, cfg)
-            grads = torch.autograd.grad(loss, live)
-        del live
-        params, opt_state, metrics = adamw.apply(
-            params, tree_unflatten(structure, list(grads)), opt_state,
-            opt_cfg, donate=donate)
-        metrics["loss"] = loss.detach()
-        return params, opt_state, metrics
-
-    return train_step
+    return adamw.make_step(lambda p, tokens: loss_fn(p, tokens, cfg, mesh),
+                           opt_cfg, donate=donate, mesh=mesh)
 
 
 def cache_shapes(cfg: LMConfig, batch: int, seq: int) -> dict:
@@ -569,9 +824,14 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     """One decode step: returns (float32 logits (B, V), the cache).  The
     caches are updated in place: the token's K and V land at ``pos`` of a
     global cache and at ``pos % w`` of a ring."""
+    if torch.is_tensor(pos) and pos.device.type == "meta":
+        # a meta position has no value: the dry run decodes the last
+        # one (the costs do not depend on it)
+        pos = cache["k_g"].shape[2] - 1
     pos = int(pos)
     dev = token.device
-    x = _embed(params, token[:, None], cfg)                 # (B, 1, D)
+    res = _res_spec(token[:, None], cfg, mesh)
+    x = _hold(_embed(params, token[:, None], cfg, mesh), res, mesh)
     if cfg.period > 1:
         w = cache["k_l"].shape[3]
     elif cfg.tail_local:
@@ -583,25 +843,26 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     def layer(x, lp, kc, vc, *, is_global):
         """One decode layer against its cache (full context or ring)."""
         h = rms_norm(x, lp["rms1"])
-        q = rope(_proj(h, lp["wq"]), qpos, cfg.rope_theta)
-        k = rope(_proj(h, lp["wk"]), qpos, cfg.rope_theta)
-        v = _proj(h, lp["wv"])
+        q = rope(_proj_any(h, lp["wq"], mesh), qpos, cfg.rope_theta)
+        k = rope(_proj_any(h, lp["wk"], mesh), qpos, cfg.rope_theta)
+        v = _proj_any(h, lp["wv"], mesh)
         if is_global or cfg.window == 0:
-            kc[:, pos] = k[:, 0]
-            vc[:, pos] = v[:, 0]
+            kc = _cache_write(kc, k[:, 0], pos, mesh)
+            vc = _cache_write(vc, v[:, 0], pos, mesh)
             kpos = torch.arange(kc.shape[1], device=dev)
-            o = _attend(q, kc, vc, qpos, kpos, kpos <= pos, 0)
+            o = _attend_any(q, kc, vc, qpos, kpos, kpos <= pos, 0, lp, mesh)
         else:
             slot = pos % w
-            kc[:, slot] = k[:, 0]
-            vc[:, slot] = v[:, 0]
+            kc = _cache_write(kc, k[:, 0], slot, mesh)
+            vc = _cache_write(vc, v[:, 0], slot, mesh)
             ring = torch.arange(w, device=dev)
             # absolute position stored in each ring slot (floor modulo)
             kpos = pos - torch.remainder(slot - ring, w)
-            o = _attend(q, kc, vc, qpos, kpos, kpos >= 0, cfg.window)
-        x = x + _out(o, lp["wo"])
+            o = _attend_any(q, kc, vc, qpos, kpos, kpos >= 0, cfg.window, lp,
+                            mesh)
+        x = _hold(x + _out_any(o, lp["wo"], mesh), res, mesh)
         h = rms_norm(x, lp["rms2"])
-        return x + _ffn(h, lp, cfg, mesh)
+        return _hold(x + _ffn(h, lp, cfg, mesh), res, mesh)
 
     for bi in range(cfg.n_blocks):
         bp = _layer(params["layers"], bi)
@@ -628,9 +889,15 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     Returns (last-token float32 logits (B, V), cache); a local layer's ring
     holds the last w positions rolled so position p sits at slot p % w."""
     b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
+    res = _res_spec(tokens, cfg, mesh)
+    x = _hold(_embed(params, tokens, cfg, mesh), res, mesh)
     w = min(cfg.window, s) if cfg.window else s
-    ring = lambda t: torch.roll(t[:, -w:], s % w, dims=1)
+    from repro_torch.distributed.sharding import blockwise
+
+    # DTensor of the card's torch has no rule for roll: a region, along
+    # the sequence, which no placement here splits
+    ring = lambda t: blockwise(lambda u: torch.roll(u, s % w, dims=1),
+                               t[:, -w:])
     kg, vg, kl, vl = [], [], [], []
     for bi in range(cfg.n_blocks):
         bp = _layer(params["layers"], bi)
@@ -641,15 +908,15 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             window = 0 if (is_global or cfg.window == 0) else cfg.window
             h = rms_norm(x, lp["rms1"])
             attn, k, v = attention_full(h, lp, 0, window, cfg,
-                                        return_kv=True)
-            x = x + attn
+                                        return_kv=True, mesh=mesh)
+            x = _hold(x + attn, res, mesh)
             if is_global or cfg.window == 0:
                 kg_b, vg_b = k, v
             else:
                 kls.append(ring(k))
                 vls.append(ring(v))
             h2 = rms_norm(x, lp["rms2"])
-            x = x + _ffn(h2, lp, cfg, mesh)
+            x = _hold(x + _ffn(h2, lp, cfg, mesh), res, mesh)
         kg.append(kg_b)
         vg.append(vg_b)
         if cfg.period > 1:
@@ -664,12 +931,12 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             lp = _layer(params["tail"], li)
             h = rms_norm(x, lp["rms1"])
             attn, k, v = attention_full(h, lp, 0, cfg.window, cfg,
-                                        return_kv=True)
-            x = x + attn
+                                        return_kv=True, mesh=mesh)
+            x = _hold(x + attn, res, mesh)
             kts.append(ring(k))
             vts.append(ring(v))
             h2 = rms_norm(x, lp["rms2"])
-            x = x + _ffn(h2, lp, cfg, mesh)
+            x = _hold(x + _ffn(h2, lp, cfg, mesh), res, mesh)
         cache.update({"k_t": torch.stack(kts), "v_t": torch.stack(vts)})
     x = rms_norm(x, params["final_norm"])
     return _logits(x[:, -1], params, cfg), cache

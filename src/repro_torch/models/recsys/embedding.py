@@ -21,9 +21,15 @@ Zipf ids repeat hot rows in every batch.
   (``distributed/sharding.py`` ``recsys_table_spec``) and its block of the
   batch, masks the ids to its rows, gathers locally (other ids contribute
   zero), and the result is summed over ``model``
-  (``distributed/collectives.py`` ``all_reduce``): the communication is
-  the pooled (B, D) output, not the table.  Forward only: the reduction
-  is not differentiable here.
+  (``distributed/collectives.py`` ``psum``, whose backward is the
+  identity: each rank's rows get their own gradient, and the ids carry
+  none): the communication is the pooled (B, D) output, not the table.
+  Given DTensors (the global table row-sharded over ``model``, the ids
+  split over ``batch_axes``), they run as a ``local_map``
+  (``distributed/sharding.py`` ``local_region``) whose table gradient is
+  a partial sum over the batch axes; DTensor's own rule for
+  ``F.embedding`` on a row-sharded table gives a masked partial that
+  breaks on the first reduction.
 """
 from __future__ import annotations
 
@@ -83,17 +89,36 @@ def embedding_bag_sharded(
     ``model``; this rank's (B_loc, D).  ``batch_axes`` names the axes the
     batch is split over (the ids arrive already cut to this rank's
     block)."""
-    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.collectives import psum
 
-    b, s = ids.shape
-    flat = ids.reshape(-1)
-    rel, mine = _local_rows(table, flat, mesh)
-    vecs = gather_rows(table, rel)
-    if weights is not None:
-        vecs = vecs * weights.reshape(-1, 1)
-    vecs = torch.where(mine[:, None], vecs, 0.0)
-    pooled = vecs.reshape(b, s, -1).sum(dim=1)
-    return all_reduce(pooled, mesh.group("model"))
+    def local(table, ids, weights):
+        b, s = ids.shape
+        flat = ids.reshape(-1)
+        rel, mine = _local_rows(table, flat, mesh)
+        vecs = gather_rows(table, rel)
+        if weights is not None:
+            vecs = vecs * weights.reshape(-1, 1)
+        vecs = torch.where(mine[:, None], vecs, 0.0)
+        pooled = vecs.reshape(b, s, -1).sum(dim=1)
+        return psum(pooled, mesh.group("model"))
+
+    return _region(local, mesh, batch_axes, 2)(table, ids, weights)
+
+
+def _region(local, mesh, batch_axes: tuple, out_rank: int):
+    """``local`` over (table, ids[, weights]) as the reference's
+    ``shard_map``: table P("model", None), ids (and weights) over
+    ``batch_axes``, the output over them too; the table's gradient a
+    partial sum over the batch axes."""
+    from repro_torch.distributed.sharding import P, entry_of, \
+        local_region, partial_over
+
+    ba = entry_of(tuple(batch_axes))
+    table_spec, ids_spec = P("model", None), P(ba, None)
+    grad = partial_over(table_spec, mesh, tuple(batch_axes))
+    return local_region(local, mesh, (table_spec, ids_spec, ids_spec),
+                        (P(ba, *([None] * (out_rank - 1))),),
+                        (grad, None, None))
 
 
 def embedding_lookup_sharded(
@@ -107,10 +132,13 @@ def embedding_lookup_sharded(
     id's row and the others add -0.0, the additive identity (``x + -0.0 ==
     x`` for every x, +0.0 and -0.0 included, where +0.0 would turn a -0.0
     entry into +0.0); an empty slot (id < 0) is +0.0 from shard 0."""
-    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.collectives import psum
 
-    rel, mine = _local_rows(table, ids, mesh)
-    empty = 0.0 if mesh.index("model") == 0 else -0.0
-    fill = torch.where(ids < 0, empty, -0.0)[..., None]
-    vecs = torch.where(mine[..., None], gather_rows(table, rel), fill)
-    return all_reduce(vecs, mesh.group("model"))
+    def local(table, ids):
+        rel, mine = _local_rows(table, ids, mesh)
+        empty = 0.0 if mesh.index("model") == 0 else -0.0
+        fill = torch.where(ids < 0, empty, -0.0)[..., None].to(table.dtype)
+        vecs = torch.where(mine[..., None], gather_rows(table, rel), fill)
+        return psum(vecs, mesh.group("model"))
+
+    return _region(local, mesh, batch_axes, 3)(table, ids)

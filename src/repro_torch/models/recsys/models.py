@@ -16,8 +16,10 @@ Parameters are nested dicts of tensors, in the reference's tree (so
 ``ckpt/store.py`` names their files as the reference does).
 ``param_shapes`` gives them on the ``meta`` device.  ``forward(...,
 mesh=...)`` runs on a :class:`repro_torch.launch.mesh.Mesh` with the
-tables row-sharded over ``model`` (each rank passes its row blocks and its
-batch block); ``make_train_step`` takes no mesh yet (ROADMAP item 4).
+tables row-sharded over ``model``: each rank passes its row blocks and its
+batch block (local view), or every rank the global arrays as DTensors
+(global view, as ``make_train_step(mesh=...)`` and ``launch/cells.py``
+call it).
 
 ``retrieval_scores`` breaks ties lowest index first, as ``lax.top_k``
 does (a stable sort, not ``torch.topk``).
@@ -37,11 +39,6 @@ from .embedding import (
     embedding_lookup,
     embedding_lookup_sharded,
 )
-
-MESH_TRAIN_ERROR = ("make_train_step(mesh=...) is not ported yet (ROADMAP "
-                    "item 4, with launch/cells.py): the gradient of the "
-                    "sharded lookup's all-reduce needs a check of its own")
-
 
 @dataclasses.dataclass(frozen=True)
 class RecSysConfig:
@@ -279,10 +276,13 @@ def capsule_routing(hist: torch.Tensor,       # (B, S, D)
 
 def bce_loss(params, batch, cfg, mesh=None, batch_axes=("data",)
              ) -> torch.Tensor:
+    from repro_torch.distributed.sharding import blockwise
+
     logits = forward(params, batch, cfg, mesh, batch_axes)
     y = batch["labels"]
-    logp = F.logsigmoid(logits)
-    lognp = F.logsigmoid(-logits)
+    # DTensor has no rule for log-sigmoid's backward
+    logp = blockwise(F.logsigmoid, logits)
+    lognp = blockwise(F.logsigmoid, -logits)
     return -torch.mean(y * logp + (1 - y) * lognp)
 
 
@@ -290,28 +290,30 @@ def make_train_step(cfg: RecSysConfig, opt_cfg=None, mesh=None,
                     batch_axes=("data",)):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradient by autograd, then
-    :func:`repro_torch.optim.adamw.apply` (default ``weight_decay`` 0)."""
-    from repro_torch.distributed.collectives import tree_flatten, \
-        tree_unflatten
+    :func:`repro_torch.optim.adamw.apply` (default ``weight_decay`` 0).
+    With a ``mesh`` the arguments are DTensors placed by ``param_specs``,
+    ``distributed/sharding.py`` ``opt_specs`` and the batch split over
+    ``batch_axes``: the lookups run in ``local_map`` over the row-sharded
+    tables, the dense towers data-parallel (``adamw.make_step``)."""
     from repro_torch.optim import adamw
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_TRAIN_ERROR)
     opt_cfg = opt_cfg or adamw.AdamWConfig(weight_decay=0.0)
+    return adamw.make_step(
+        lambda p, batch: bce_loss(p, batch, cfg, mesh, batch_axes), opt_cfg,
+        mesh=mesh)
 
-    def train_step(params, opt_state, batch):
-        leaves, structure = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = bce_loss(tree_unflatten(structure, live), batch, cfg)
-            grads = torch.autograd.grad(loss, live)
-        params, opt_state, metrics = adamw.apply(
-            params, tree_unflatten(structure, list(grads)), opt_state,
-            opt_cfg)
-        metrics["loss"] = loss.detach()
-        return params, opt_state, metrics
 
-    return train_step
+def mind_retrieval(params: dict, hist_ids: torch.Tensor,
+                   hist_len: torch.Tensor, candidates: torch.Tensor,
+                   cfg: RecSysConfig, mesh=None, k: int = 100):
+    """MIND's single-user tower and its top-k over ``candidates``: the
+    history's interests (the lookup on the row-sharded table with the
+    batch replicated) scored by max-over-interests dot."""
+    hvec = _lookup(params["table"], hist_ids, mesh, ())
+    hmask = (torch.arange(cfg.seq_len, device=hist_ids.device)[None, :]
+             < hist_len[:, None])
+    interests = capsule_routing(hvec, hmask, params["bilinear"], cfg)
+    return retrieval_scores(interests, candidates, k=k)
 
 
 def retrieval_scores(user: torch.Tensor,        # (B, D) or (B, I, D)

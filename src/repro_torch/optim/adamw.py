@@ -10,6 +10,7 @@ order, the epsilon and the clip rule.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Union
@@ -131,6 +132,60 @@ def apply(params, grads, state: AdamWState, cfg: AdamWConfig,
             {"grad_norm": gnorm,
              "lr": torch.as_tensor(lr, dtype=torch.float32,
                                    device=t.device)})
+
+
+def make_step(loss_fn, cfg: AdamWConfig, donate: bool = False, mesh=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``loss_fn(params, batch)``'s gradient by autograd, then
+    :func:`apply`; ``metrics["loss"]`` is the loss.
+
+    Over DTensors (a mesh step) each gradient is first moved to its
+    moments' placements (a reduce-scatter over ``data`` for a ZeRO-1
+    moment, an all-reduce for a replicated one), the update runs on those
+    blocks, and the new parameters and moments come back on the
+    placements they came in on (the parameters' all-gather of ZeRO-1).
+    ``donate`` (one process only) updates in place.  With a ``mesh`` the
+    step refuses parameters that are not DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import implicit_replication
+
+    def train_step(params, opt_state, batch):
+        leaves, structure = tree_flatten(params)
+        mesh_step = isinstance(leaves[0], DTensor)
+        if mesh is not None and not mesh_step:
+            raise TypeError("a mesh step takes the global arrays as "
+                            "DTensors (distributed/sharding.py distribute)")
+        if mesh_step and donate:
+            raise ValueError("donate is for a one-process step")
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad(), (implicit_replication() if mesh_step
+                                   else contextlib.nullcontext()):
+            loss = loss_fn(tree_unflatten(structure, live), batch)
+            grads = torch.autograd.grad(loss, live)
+        del live
+        if not mesh_step:
+            params, opt_state, metrics = apply(
+                params, tree_unflatten(structure, list(grads)), opt_state,
+                cfg, donate=donate)
+            metrics["loss"] = loss.detach()
+            return params, opt_state, metrics
+        with implicit_replication():
+            moments = tree_flatten(opt_state.mu)[0]
+            grads = [g.redistribute(m.device_mesh, m.placements)
+                     for g, m in zip(grads, moments)]
+            new_p, new_s, metrics = apply(
+                params, tree_unflatten(structure, grads), opt_state, cfg)
+            back = lambda new, old: new.redistribute(old.device_mesh,
+                                                     old.placements)
+            new_p = tree_map(back, new_p, params)
+            new_s = AdamWState(step=new_s.step,
+                               mu=tree_map(back, new_s.mu, opt_state.mu),
+                               nu=tree_map(back, new_s.nu, opt_state.nu))
+        metrics["loss"] = loss.detach()
+        return new_p, new_s, metrics
+
+    return train_step
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,

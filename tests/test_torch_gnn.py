@@ -287,14 +287,22 @@ def test_forward_rowdp_matches_the_dense_forward(cfgs, tmp_path):
 
 
 def test_mesh_paths_not_ported_are_refused(cfgs):
+    """The mesh paths are ported (tests/test_torch_mesh_train.py); given a
+    mesh they take the global arrays as DTensors and refuse plain
+    tensors."""
+    from repro_torch.optim import adamw as tadamw
+
     _, tc = cfgs
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        tgnn.make_train_step(tc, mesh=object())
     sharded = dataclasses.replace(tc, sharded_mp=True)
     p = tgnn.init_params(tc, 4, torch.Generator().manual_seed(0), "cpu")
     src, dst, feats = random_graph(10, 20, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        tgnn.forward(p, *_t(feats, src, dst), sharded, mesh=object())
+    feats_t, src_t, dst_t = _t(feats, src, dst)
+    batch = {"node_feats": feats_t, "src": src_t, "dst": dst_t,
+             "targets": torch.zeros((10, tc.n_vars))}
+    with pytest.raises(TypeError, match="DTensor"):
+        tgnn.make_train_step(tc, mesh=object())(p, tadamw.init(p), batch)
+    with pytest.raises(TypeError, match="DTensor"):
+        tgnn.forward(p, feats_t, src_t, dst_t, sharded, mesh=object())
 
 
 def test_segment_sum_repeats_bit_for_bit(rng):

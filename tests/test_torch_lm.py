@@ -451,6 +451,10 @@ def test_chunked_loss_and_attention_fall_back_to_one_chunk():
 
 
 def test_mesh_training_is_refused():
+    """A mesh step (tests/test_torch_mesh_train.py) takes the global
+    arrays as DTensors: plain tensors are refused."""
     _, tc = _configs("phi4_mini")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        ttf.make_train_step(tc, mesh=object())
+    p = ttf.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 9), dtype=torch.int32)
+    with pytest.raises(TypeError, match="DTensor"):
+        ttf.make_train_step(tc, mesh=object())(p, tadamw.init(p), toks)

@@ -344,8 +344,14 @@ def test_configs_match_reference():
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        trs.make_train_step(_reduced("mind"), mesh=object())
+    """A mesh step (tests/test_torch_mesh_train.py) takes the global
+    arrays as DTensors: plain tensors are refused."""
+    from repro_torch.optim import adamw as tadamw
+
+    cfg = _reduced("mind")
+    p = trs.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(TypeError, match="DTensor"):
+        trs.make_train_step(cfg, mesh=object())(p, tadamw.init(p), {})
 
 
 # --------------------------------------------------------------------------
