@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -182,6 +184,33 @@ class SplitStats:
     wait_s: float = 0.0
     wall_s: float = 0.0
     kernel_ms: list = dataclasses.field(default_factory=list)
+    # host-clock stamps of the sums above: the thread that ran the call;
+    # (start, loop start, loop end, end) of each call; (t0, t1, t2, t3,
+    # sub-problems) of each step, K23 from t1 to t2 (the last, with none,
+    # pops the leaves only)
+    track: str = ""
+    calls: list = dataclasses.field(default_factory=list)
+    step_stamps: list = dataclasses.field(default_factory=list)
+
+    def spans(self) -> list[tuple[str, float, float, str, Optional[dict]]]:
+        """(name, t0, t1, track, args) trace spans of the calls, from the
+        stamps (no extra clock reads): each call a ``stage1.split`` span,
+        inside it the corpus's upload (``stage1.upload``), each step's
+        ``stage1.k23`` (args: its sub-problems) between ``stage1.host``
+        spans (popping the nodes, splitting them), then the leaves' means
+        (``stage1.means``)."""
+        out = []
+        for c0, l0, l1, c1 in self.calls:
+            out += [("stage1.split", c0, c1, self.track, None),
+                    ("stage1.upload", c0, l0, self.track, None),
+                    ("stage1.means", l1, c1, self.track, None)]
+        for t0, t1, t2, t3, n in self.step_stamps:
+            out.append(("stage1.host", t0, t1, self.track, None))
+            if n:
+                out += [("stage1.k23", t1, t2, self.track,
+                         {"subproblems": n}),
+                        ("stage1.host", t2, t3, self.track, None)]
+        return [sp for sp in out if sp[2] > sp[1] > 0.0]
 
 
 def balanced_hierarchical_kmeans_many(
@@ -200,7 +229,8 @@ def balanced_hierarchical_kmeans_many(
     A node's seed is its chunk's seed plus the number of internal nodes the
     chunk popped up to it, so a chunk's nodes run one after another; the
     chunks are independent, so each step takes one node from every chunk
-    that has one left.  ``stats``, when given, is filled in."""
+    that has one left.  ``stats``, when given, is filled in, with the
+    stamps of its sums (:meth:`SplitStats.spans`)."""
     dev = resolve_device(device)
     xs = [np.asarray(c, np.float32) for c in chunks]
     if len(seeds) != len(xs):
@@ -208,6 +238,7 @@ def balanced_hierarchical_kmeans_many(
     if not xs:
         return []
     st = stats if stats is not None else SplitStats()
+    st.track = threading.current_thread().name
     t_call = time.perf_counter()
     base = np.cumsum([0] + [c.shape[0] for c in xs])
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -218,6 +249,7 @@ def balanced_hierarchical_kmeans_many(
         stacks = [[np.arange(c.shape[0])] for c in xs]
         leaves: list[list] = [[] for _ in xs]
         task_seed = [int(s) for s in seeds]
+        t_loop0 = time.perf_counter()
         while True:
             t0 = time.perf_counter()
             nodes = []                            # (chunk, idxs, k, seed)
@@ -233,7 +265,9 @@ def balanced_hierarchical_kmeans_many(
                                   task_seed[i]))
                     break
             if not nodes:
-                st.host_s += time.perf_counter() - t0
+                t_loop1 = time.perf_counter()
+                st.host_s += t_loop1 - t0
+                st.step_stamps.append((t0, t_loop1, t_loop1, t_loop1, 0))
                 break
             events = None
             if stream is not None:
@@ -253,12 +287,16 @@ def balanced_hierarchical_kmeans_many(
                 stacks[i].extend(_children(xs[i], idxs,
                                            a[at:at + idxs.size], k))
                 at += idxs.size
+            t3 = time.perf_counter()
             st.steps += 1
             st.subproblems += len(nodes)
             st.wait_s += t2 - t1
-            st.host_s += (t1 - t0) + (time.perf_counter() - t2)
+            st.host_s += (t1 - t0) + (t3 - t2)
+            st.step_stamps.append((t0, t1, t2, t3, len(nodes)))
     out = [_leaf_means(x, lv) for x, lv in zip(xs, leaves)]
-    st.wall_s += time.perf_counter() - t_call
+    t_end = time.perf_counter()
+    st.wall_s += t_end - t_call
+    st.calls.append((t_call, t_loop0, t_loop1, t_end))
     return out
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import threading
 import time
 from typing import Optional
 
@@ -75,6 +76,38 @@ class BuildReport:
                                   # build_postings, after the shards
     stage1_split: list = dataclasses.field(default_factory=list)
                                   # SplitStats per fused stage-1 group
+    stamps: dict = dataclasses.field(default_factory=dict)
+                                  # (start, end) host-clock stamps of the
+                                  # build, its stages and the steps inside
+                                  # them (build_spans names them)
+
+
+def build_spans(report: BuildReport, track: str
+                ) -> list[tuple[str, float, float, str, Optional[dict]]]:
+    """(name, t0, t1, track, args) trace spans of one build, from the
+    stamps its report holds (no extra clock reads): the build, its stages
+    and their steps on ``track`` (the thread that ran ``build_index``),
+    stage 1's lockstep splitters on their worker threads' tracks
+    (:meth:`SplitStats.spans`), and each streamed stage-2 shard's load and
+    copy to the device on the ``shard-load`` track, its assign and
+    checkpoint write on ``track``."""
+    spans = [(name, a, b, track, None)
+             for name, (a, b) in report.stamps.items()]
+    for st in report.stage1_split:
+        spans += st.spans()
+    for sh in report.shard_stamps:
+        if sh["resumed"]:
+            continue
+        spans += [
+            ("shard.load", sh["load_start"], sh["load_end"], "shard-load",
+             {"rows": sh["rows"]}),
+            ("shard.h2d", sh["load_end"], sh["stream_end"], "shard-load",
+             None),
+            ("shard.assign", sh["assign_dispatch"], sh["assign_done"], track,
+             {"rows": sh["rows"]}),
+            ("shard.write", sh["assign_done"], sh["harvest_end"], track,
+             None)]
+    return [sp for sp in spans if sp[2] >= sp[1] > 0.0]
 
 
 def _chunks(n: int, per_task: int) -> list[tuple[int, int]]:
@@ -101,9 +134,12 @@ def build_index(
     query_topk: Optional[np.ndarray] = None,
     *,
     device: DeviceLike = None,
+    obs=None,
 ) -> tuple[IVFIndex, Optional[LLSPParams], BuildReport]:
     """Build (or resume) the serving index on ``device`` (the CUDA card by
-    default).  Returns (index on the device, llsp on the device, report)."""
+    default).  Returns (index on the device, llsp on the device, report).
+    With ``obs`` tracing, the build records its spans
+    (:func:`build_spans`) when it ends."""
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
     n = x.shape[0]
@@ -112,6 +148,7 @@ def build_index(
     os.makedirs(shards_dir, exist_ok=True)
     spans = _chunks(n, cfg.coarse_per_task)
     stage_seconds: dict = {}
+    marks: dict = {}
     resumed: list = []
     split_stats: list = []
 
@@ -154,12 +191,19 @@ def build_index(
             outs = run_tasks([mk_stage1(i, lo, hi) for i, (lo, hi) in chunks],
                              n_workers=cfg.n_workers)
         centroids = np.concatenate(outs, axis=0).astype(np.float32)
+        t_bound = time.perf_counter()
         centroids = enforce_size_bound(
             x, centroids, min(cfg.max_cluster_size, cfg.cluster_len),
             seed=cfg.seed, fused=cfg.fused_assign, device=dev)
+        t_save = time.perf_counter()
         np.save(c_path, centroids)
     n_clusters = centroids.shape[0]
-    stage_seconds["stage1"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stage_seconds["stage1"] = t1 - t0
+    marks["build.stage1"] = (t0, t1)
+    if "stage1" not in resumed:
+        marks["stage1.size_bound"] = (t_bound, t_save)
+        marks["stage1.save"] = (t_save, t1)
 
     # ---- stage 2: closure assignment per shard + posting build -----------
     t0 = time.perf_counter()
@@ -209,23 +253,35 @@ def build_index(
     index = IVFIndex(torch.from_numpy(centroids).to(dev),
                      torch.from_numpy(postings).to(dev),
                      torch.from_numpy(posting_ids).to(dev))
-    stage_seconds["stage2"] = time.perf_counter() - t0
-    postings_s = time.perf_counter() - t_post
+    t1 = time.perf_counter()
+    stage_seconds["stage2"] = t1 - t0
+    postings_s = t1 - t_post
+    marks["build.stage2"] = (t0, t1)
+    marks["stage2.postings"] = (t_post, t1)
 
     # ---- stage 3: LLSP training from logged queries -----------------------
     t0 = time.perf_counter()
     llsp = None
     if cfg.llsp is not None and queries is not None and query_topk is not None:
         llsp = train_llsp_for_index(cfg.llsp, index, x, queries,
-                                    np.asarray(query_topk), seed=cfg.seed)
-    stage_seconds["stage3"] = time.perf_counter() - t0
+                                    np.asarray(query_topk), seed=cfg.seed,
+                                    stamps=marks)
+    t1 = time.perf_counter()
+    stage_seconds["stage3"] = t1 - t0
+    marks["build.stage3"] = (t0, t1)
+    marks["build"] = (marks["build.stage1"][0], t1)
 
     replication = float((posting_ids >= 0).sum()) / max(n, 1)
     report = BuildReport(n_clusters=n_clusters, replication=replication,
                          stage_seconds=stage_seconds, resumed_stages=resumed,
                          shard_stamps=shard_stamps,
                          shard_overlap=shard_overlap,
-                         postings_s=postings_s, stage1_split=split_stats)
+                         postings_s=postings_s, stage1_split=split_stats,
+                         stamps=marks)
+    if obs is not None and obs.tracing:
+        for name, a, b, track, args in build_spans(
+                report, threading.current_thread().name):
+            obs.trace.span(name, a, b, track=track, args=args)
     return index, llsp, report
 
 
@@ -236,10 +292,14 @@ def train_llsp_for_index(
     queries: np.ndarray,
     query_topk: np.ndarray,
     seed: int = 0,
+    stamps: Optional[dict] = None,
 ) -> LLSPParams:
     """Offline LLSP training: labels from a non-pruned large-nprobe search
     on the index's device; the GBDTs fit in numpy; the params come back on
-    the index's device."""
+    the index's device.  ``stamps``, when given, gets the (start, end) of
+    the labelling (``llsp.label``, with the copies to the host) and of the
+    fit (``llsp.fit``)."""
+    t0 = time.perf_counter()
     dev = index.device
     q = torch.from_numpy(np.asarray(queries, np.float32)).to(dev)
     topk = np.asarray(query_topk, np.int64)
@@ -251,8 +311,13 @@ def train_llsp_for_index(
     true = true_ids.cpu().numpy()
     cols = np.arange(kmax)[None, :]
     true = np.where(cols < topk[:, None], true, -1)   # per-query k padding
+    cid_order, cdists = cid_order.cpu().numpy(), cdists.cpu().numpy()
+    posting_ids = index.posting_ids.cpu().numpy()
+    t1 = time.perf_counter()
     params = train_llsp(
-        llsp_cfg, np.asarray(queries, np.float32), topk,
-        cid_order.cpu().numpy(), cdists.cpu().numpy(), true,
-        index.posting_ids.cpu().numpy(), x.shape[0], seed=seed)
-    return params.to(dev)
+        llsp_cfg, np.asarray(queries, np.float32), topk, cid_order, cdists,
+        true, posting_ids, x.shape[0], seed=seed).to(dev)
+    if stamps is not None:
+        stamps["llsp.label"] = (t0, t1)
+        stamps["llsp.fit"] = (t1, time.perf_counter())
+    return params

@@ -103,9 +103,11 @@ class Deployment:
 def deploy(arena: ChunkArena, name: str, spec, workdir: str,
            n_shards: int, scfg: SearchConfig, tier: str = "q8",
            rerank: Optional[RerankConfig] = None,
-           with_rerank: bool = True, device=None) -> Deployment:
+           with_rerank: bool = True, device=None,
+           obs: Optional[Observability] = None) -> Deployment:
     """Build one index on ``device`` (the reference's build settings) and
-    deploy it with :func:`deploy_built`."""
+    deploy it with :func:`deploy_built`; with ``obs`` tracing, the build
+    records its spans."""
     x = make_vectors(spec)
     q, topk = make_queries(spec, 256)
     topk = np.minimum(topk, 50).astype(np.int32)
@@ -114,7 +116,8 @@ def deploy(arena: ChunkArena, name: str, spec, workdir: str,
                       llsp=LLSPConfig(levels=(8, 16), n_ratio_features=8))
     t0 = time.perf_counter()
     index, llsp, report = build_index(x, cfg, workdir, queries=q,
-                                      query_topk=topk, device=device)
+                                      query_topk=topk, device=device,
+                                      obs=obs)
     note = (f"build {time.perf_counter() - t0:.1f}s ("
             + " ".join(f"{k} {v:.1f}s"
                        for k, v in report.stage_seconds.items()) + "), "
@@ -340,14 +343,14 @@ def run_fabric(args) -> dict:
     name = list(PAPER_DATASETS)[0]
     with tempfile.TemporaryDirectory() as root:
         spec = dataclasses.replace(PAPER_DATASETS[name], n=args.n, dim=32)
+        obs = make_obs(args)
         dep = deploy(arena, name, spec, os.path.join(root, name),
-                     args.shards, scfg, tier="f32", device=dev)
+                     args.shards, scfg, tier="f32", device=dev, obs=obs)
         inj = None
         if args.kill_shard_at > 0:
             inj = FaultInjector(seed=0).kill(args.kill_shard_at)
         hot = (np.arange(dep.index.n_clusters) if args.replicas > 1
                else None)
-        obs = make_obs(args)
         fab = ShardedFabric(dep.index, dep.llsp, scfg,
                             n_shards=args.shards,
                             n_replicas=args.replicas, hot_clusters=hot,
@@ -472,20 +475,21 @@ def run_single_node(args) -> dict:
     deps: dict[str, Deployment] = {}
     tiers_seen: list = []          # every deployed tier, incl. swapped-out
     out: dict = {"device": dev.type, "indexes": names}
+    obs = make_obs(args)
     with tempfile.TemporaryDirectory() as root:
         for name in names:
             spec = dataclasses.replace(PAPER_DATASETS[name], n=args.n, dim=32)
             deps[name] = deploy(arena, name, spec,
                                 os.path.join(root, name), n_shards, scfg,
                                 tier=args.tier, rerank=rerank,
-                                with_rerank=not args.no_rerank, device=dev)
+                                with_rerank=not args.no_rerank, device=dev,
+                                obs=obs)
             tiers_seen.append(deps[name].pipeline.tier)
 
         policy = BatchPolicy(max_batch=args.batch, max_wait_s=0.05,
                              shed="degrade", degrade_nprobe=8,
                              grouping=args.grouping)
         batcher = DynamicBatcher(policy, names)
-        obs = make_obs(args)
         # shadow audits need one ground-truth corpus: with co-resident
         # indexes the proxy/SLO streams stay on but the audit lane is off
         audit_vecs = (_vectors_from_postings(deps[names[0]].index)
@@ -739,7 +743,8 @@ operator runbook — observability:
 
   Metrics are always on (streaming histograms/counters/gauges);
   --metrics-every N prints the registry every N seconds.  --trace-out F
-  turns tracing on (at --sample-rate) and writes one Chrome/Perfetto
+  turns tracing on (requests at --sample-rate; every served batch's stages
+  and each deployed index's build steps) and writes one Chrome/Perfetto
   trace_event JSON at exit.  The quality layer (on unless --no-quality)
   stamps a per-query recall proxy (rerank agreement on the q8 tier), runs
   shadow audits (--shadow-rate, one index only), burn-rate SLO alerts, and

@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.obs import Observability
-from repro_torch.runtime.pipeline import stage_spans
+from repro_torch.runtime.pipeline import stage_child_spans, stage_spans
 
 
 @dataclasses.dataclass
@@ -513,24 +513,27 @@ class ServeEngine:
         self._complete(comps)
 
     def _emit_batch_spans(self, t, mb) -> None:
-        """Stage spans for one served batch, from the StageTimes stamps the
-        pipeline already took (zero extra clock reads).  Batches overlap in
-        the depth>1 window, so each goes on a rotating ``batch-N`` lane —
-        spans within one batch are sequential and nest under the parent."""
-        tids = [r.trace_id for r in mb.requests if r.trace_id]
-        if not tids:
-            return
+        """Stage spans for one served batch, and the spans inside them, from
+        the StageTimes stamps the pipeline already took (zero extra clock
+        reads); every batch has them, whether or not a sampled request
+        rides it.  Batches overlap in the depth>1 window, so each goes on a
+        rotating ``batch-N`` lane — spans within one batch are sequential
+        and nest under the parent."""
         spans = stage_spans(t)
         if not spans:
             return
+        tids = [r.trace_id for r in mb.requests if r.trace_id]
         lane = f"batch-{self.stats.batches % 16}"
         tr = self.obs.trace
         tr.span("batch", min(a for _, a, _ in spans),
-                max(b for _, _, b in spans), trace_id=tids[0], track=lane,
+                max(b for _, _, b in spans),
+                trace_id=tids[0] if tids else 0, track=lane,
                 args={"n": len(mb.requests), "index": mb.index,
                       "trace_ids": tids[:32]})
         for name, a, b in spans:
             tr.span(name, a, b, track=lane)
+        for name, a, b, args in stage_child_spans(t):
+            tr.span(name, a, b, track=lane, args=args)
 
     def _form_and_plan(self, now: float, force: bool = False):
         """Form the next micro-batch and run its plan stage (device idle

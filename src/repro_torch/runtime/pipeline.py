@@ -86,6 +86,17 @@ class StageTimes:
     rerank_stable_stop: bool = False  # top-k went stable before the
                                       # candidate list was exhausted
     rerank_round_size: int = 0     # round width this batch used
+    # inside the stages above (one stamp each a batch; 0 = not taken)
+    plan_wait_start: float = 0.0   # the plan's probe table: device to host
+    plan_wait_end: float = 0.0
+    union_end: float = 0.0         # the gather's union plan done
+    alloc_end: float = 0.0         # its packed buffers allocated; the row
+                                   # copies run from here to gather_end
+    gather_cpu_s: float = 0.0      # thread CPU seconds of the gather
+    rerank_read_wait_s: float = 0.0  # re-rank blocked on its flash reads
+    scan_device_ms: float = 0.0    # scan + merge on the device (CUDA
+                                   # events on the scan stream)
+    scan_device_start: float = 0.0  # where that began, on the host clock
 
     @property
     def total(self) -> float:
@@ -138,6 +149,7 @@ class _Inflight:
     queries_host: np.ndarray
     done: Optional[torch.cuda.Event] = None
     fresh_seq: int = -1            # freshness snapshot merged (-1 = none)
+    scan_events: Optional[tuple] = None    # (anchor, scan start, merge end)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,6 +316,10 @@ class PrefetchPipeline:
             if flash is not None else None)
         self._scan_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # nothing else runs here: an event recorded on it completes as the
+        # host records it, which ties the scan's events to the host clock
+        self._anchor_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
         self.quality_proxy = bool(quality_proxy)
         # auto_round state (RerankConfig.auto_round): EWMA of the measured
         # per-slot flash read cost and the round width derived from it
@@ -398,8 +414,10 @@ class PrefetchPipeline:
         else:
             cd, npd = self._plan_device(qd,
                                         torch.from_numpy(tk).to(self.device))
+            t.plan_wait_start = time.perf_counter()
             cids = cd.cpu().numpy()
             nprobe = npd.cpu().numpy().copy()
+            t.plan_wait_end = time.perf_counter()
         if nprobe_cap is not None:
             cap = np.zeros((bp,), np.int32)
             cap[:b] = np.asarray(nprobe_cap, np.int32)
@@ -418,10 +436,13 @@ class PrefetchPipeline:
     def _gather(self, plan: _Plan, pad_rows: Optional[int] = None):
         fetched = self.tier.fetch(plan.cids, plan.pmask, pad_rows=pad_rows,
                                   bucket=self.row_bucket)
-        ev = self.tier.stats.events[-1]    # same thread as the fetch: safe
+        ev = fetched.event
         t = plan.times
         t.gather_start = ev.gather_start
+        t.union_end = ev.union_end
+        t.alloc_end = ev.alloc_end
         t.gather_end = ev.gather_end
+        t.gather_cpu_s = ev.cpu_s
         t.stream_end = ev.stream_end
         t.rows = ev.rows
         t.clusters_requested = ev.clusters_requested
@@ -450,8 +471,14 @@ class PrefetchPipeline:
             raise ValueError(
                 "reference scan is an f32-tier A/B baseline; the quantized "
                 "tier and the resident mode have no pre-runtime twin")
-        t.scan_dispatch = time.perf_counter()
         stream = self._scan_stream
+        timing = None                  # (anchor, scan start, merge end)
+        if stream is not None:
+            timing = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        t.scan_dispatch = time.perf_counter()
+        if timing is not None:
+            timing[0].record(self._anchor_stream)
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
         done = None
@@ -464,8 +491,11 @@ class PrefetchPipeline:
                     for x in fetched.tensors():
                         x.record_stream(stream)
             pmask = torch.from_numpy(plan.pmask).to(self.device)
+            cids = None if fetched is not None \
+                else torch.from_numpy(plan.cids).to(self.device)
+            if timing is not None:
+                timing[1].record(stream)
             if fetched is None:
-                cids = torch.from_numpy(plan.cids).to(self.device)
                 od, oi = _scan_and_rank(self.index, plan.queries_dev, cids,
                                         pmask, self._scan_cfg)
             elif quant:
@@ -479,6 +509,8 @@ class PrefetchPipeline:
                 od, oi = _scan_streamed(
                     *fetched.tensors(), pmask, plan.queries_dev,
                     self._scan_cfg, dup_bound=self.dup_bound)
+            if timing is not None:
+                timing[2].record(stream)
             seq = -1
             snap = self.fresh_source() if self.fresh_source is not None \
                 else None
@@ -506,7 +538,7 @@ class PrefetchPipeline:
                 done.record(stream)
                 od, oi = host_d, host_i
         return _Inflight(od, oi, plan.nprobe, t, t.size, plan.queries_host,
-                         done, fresh_seq=seq)
+                         done, fresh_seq=seq, scan_events=timing)
 
     def harvest(self, infl: _Inflight) -> BatchResult:
         """Wait for the scan; truncate padding; with the flash tier
@@ -517,6 +549,12 @@ class PrefetchPipeline:
         ids = infl.out_i.numpy()[: infl.size]
         dists = infl.out_d.numpy()[: infl.size]
         infl.times.scan_done = time.perf_counter()
+        if infl.scan_events is not None:
+            anchor, a, b = infl.scan_events
+            t = infl.times
+            t.scan_device_ms = a.elapsed_time(b)
+            t.scan_device_start = (t.scan_dispatch
+                                   + 1e-3 * anchor.elapsed_time(a))
         quality = None
         if self.flash is not None and infl.size > 0:
             pre_top = ids[:, : self.cfg.k].copy() if self.quality_proxy \
@@ -563,7 +601,8 @@ class PrefetchPipeline:
         def _submit(r):
             if r < n_rounds and r not in futs:
                 futs[r] = self._reranker.submit(
-                    self.flash.read, flash_ids[:, r * step:(r + 1) * step])
+                    self.flash.read_stamped,
+                    flash_ids[:, r * step:(r + 1) * step])
 
         prev_top = None
         stable = 0
@@ -572,8 +611,9 @@ class PrefetchPipeline:
         _submit(0)
         for r in range(n_rounds):
             _submit(r + 1)                 # double-buffer the next read
-            uids, rows = futs.pop(r).result()
-            ev = self.flash.stats.events[-1]
+            w0 = time.perf_counter()
+            uids, rows, ev = futs.pop(r).result()
+            t.rerank_read_wait_s += time.perf_counter() - w0
             t.rerank_io_s += ev.end - ev.start
             lo, hi = r * step, min(n, (r + 1) * step)
             cols = cand_i[:, lo:hi]
@@ -734,6 +774,32 @@ def stage_spans(t: StageTimes) -> list[tuple[str, float, float]]:
              ("scan", t.scan_dispatch, t.scan_done),
              ("rerank", t.rerank_start, t.rerank_end)]
     return [(n, a, b) for n, a, b in spans if b > a > 0.0]
+
+
+def stage_child_spans(t: StageTimes
+                      ) -> list[tuple[str, float, float, Optional[dict]]]:
+    """(name, t0, t1, args) spans inside the :func:`stage_spans` of one
+    batch, from its stamps (no extra clock reads); unstamped ones drop out.
+    The re-rank's flash waits are summed over its rounds, so
+    ``rerank.read_wait`` is one span of their total at the re-rank's end
+    and ``rerank.score`` the rest.  ``scan.device`` is the scan's device
+    time where it ran: its start event's offset from an anchor event that
+    completed at the ``scan_dispatch`` stamp, held inside the host's
+    ``scan`` window (the anchor's own delay is microseconds)."""
+    wait_at = t.rerank_end - t.rerank_read_wait_s
+    dev0 = max(t.scan_dispatch, t.scan_device_start)
+    dev1 = min(t.scan_done, t.scan_device_start + 1e-3 * t.scan_device_ms)
+    spans = [
+        ("plan.wait", t.plan_wait_start, t.plan_wait_end, None),
+        ("gather.union", t.gather_start, t.union_end,
+         {"clusters": t.union_clusters, "bytes": t.union_bytes}),
+        ("gather.alloc", t.union_end, t.alloc_end, None),
+        ("gather.take", t.alloc_end, t.gather_end,
+         {"cpu_s": t.gather_cpu_s}),
+        ("scan.device", dev0, dev1, {"ms": t.scan_device_ms}),
+        ("rerank.score", t.rerank_start, wait_at, None),
+        ("rerank.read_wait", wait_at, t.rerank_end, None)]
+    return [(n, a, b, args) for n, a, b, args in spans if b > a > 0.0]
 
 
 def rerank_overlap_efficiency(times: list[StageTimes]) -> float:

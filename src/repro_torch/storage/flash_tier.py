@@ -147,6 +147,14 @@ class FlashTier:
         tier's union-dedup so a candidate shared across queries costs one
         flash read per burst.
         """
+        return self.read_stamped(ids)[:2]
+
+    def read_stamped(self, ids: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray, ReadEvent]:
+        """:meth:`read`, with the read's own stamps: (uids, rows, event).
+        A caller with reads in flight on other threads takes its stamps
+        from here, not from ``stats.events``, whose last entry may be
+        another read's."""
         if self.released:
             raise RuntimeError(
                 f"read on released flash tier (epoch {self.epoch})")
@@ -161,6 +169,6 @@ class FlashTier:
         self.stats.rows_read += int(uids.size)
         self.stats.bytes_read += nb
         self.stats.rows_requested += requested
-        self.stats.record(ReadEvent(t0, t1, int(uids.size), nb,
-                                    requested=requested))
-        return uids, rows
+        ev = ReadEvent(t0, t1, int(uids.size), nb, requested=requested)
+        self.stats.record(ev)
+        return uids, rows, ev

@@ -26,7 +26,11 @@ from repro_torch.device import DeviceLike, resolve_device
 class FetchEvent:
     """Wall-clock stamps + union accounting of one fetch: host gather, then
     device stream.  ``union_bytes`` counts the payload of the real union rows
-    only (no sentinel, no bucket padding)."""
+    only (no sentinel, no bucket padding).  The gather runs in three steps,
+    each ending at its stamp: the union plan (``union_end``), the packed
+    buffers' allocation (``alloc_end``), the row copies into them and the
+    remap's pinning (``gather_end``); ``cpu_s`` is the gather's CPU time on
+    the thread that ran it (``time.thread_time``)."""
     gather_start: float
     gather_end: float     # union gather materialized in pinned host memory
     stream_end: float     # packed tensors resident on the device
@@ -35,6 +39,9 @@ class FetchEvent:
     clusters_requested: int = 0   # live probe slots across the batch
     clusters_union: int = 0       # after cross-query dedup (= gather rows)
     union_bytes: int = 0          # payload bytes of the deduped union
+    union_end: float = 0.0        # _plan_union done
+    alloc_end: float = 0.0        # packed host buffers allocated
+    cpu_s: float = 0.0            # thread CPU seconds of the gather
 
 
 @dataclasses.dataclass
@@ -105,6 +112,7 @@ class F32Fetch:
     ids: torch.Tensor         # (R, L) int32
     remap: torch.Tensor       # (B, P) int32 into the packed rows
     ready: Optional[torch.cuda.Event] = None   # copies done (CUDA only)
+    event: Optional[FetchEvent] = None         # this fetch's own stamps
 
     def tensors(self) -> tuple:
         return (self.postings, self.ids, self.remap)
@@ -155,41 +163,43 @@ class TieredPostings:
             raise RuntimeError(
                 f"fetch on released tier (epoch {self.epoch}): a batch was "
                 f"routed to a retired index version")
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         wanted, u, rows, remap, live = _plan_union(
             cids, mask, self._lut, self.postings.shape[0], pad_rows, bucket)
+        t_union = time.perf_counter()
         _, l, d = self.postings.shape
         pin = self.device.type == "cuda"
         packed = torch.empty((rows, l, d), dtype=torch.float32,
                              pin_memory=pin)
-        np.take(self.postings, wanted, axis=0, out=packed.numpy()[:u])
         packed_ids = torch.full((rows, l), -1, dtype=torch.int32,
                                 pin_memory=pin)
+        t_alloc = time.perf_counter()
+        np.take(self.postings, wanted, axis=0, out=packed.numpy()[:u])
         np.take(self.posting_ids, wanted, axis=0,
                 out=packed_ids.numpy()[:u])
         packed_remap = torch.from_numpy(remap)
         if pin:
             packed_remap = packed_remap.pin_memory()
         host = (packed, packed_ids, packed_remap)
-        t1 = time.perf_counter()
+        t1, cpu_s = time.perf_counter(), time.thread_time() - c0
         dev, ready = _pinned_copy(host, self.device, self._stream)
         t2 = time.perf_counter()
         nbytes = int(sum(h.numel() * h.element_size() for h in host[:2]))
-        _record_fetch(self.stats, t0, t1, t2, rows, nbytes, int(live.sum()),
-                      u, u * self.cluster_bytes)
-        return F32Fetch(*dev, ready=ready)
+        ev = _record_fetch(self.stats, FetchEvent(
+            t0, t1, t2, rows, nbytes, clusters_requested=int(live.sum()),
+            clusters_union=u, union_bytes=u * self.cluster_bytes,
+            union_end=t_union, alloc_end=t_alloc, cpu_s=cpu_s))
+        return F32Fetch(*dev, ready=ready, event=ev)
 
 
-def _record_fetch(stats: TierStats, t0, t1, t2, rows, nbytes, requested,
-                  u, union_bytes) -> None:
-    stats.bytes_streamed += nbytes
-    stats.union_bytes_streamed += union_bytes
+def _record_fetch(stats: TierStats, ev: FetchEvent) -> FetchEvent:
+    stats.bytes_streamed += ev.bytes
+    stats.union_bytes_streamed += ev.union_bytes
     stats.batches += 1
-    stats.clusters_fetched += requested
-    stats.clusters_deduped += u
-    stats.record(FetchEvent(t0, t1, t2, rows, nbytes,
-                            clusters_requested=requested, clusters_union=u,
-                            union_bytes=union_bytes))
+    stats.clusters_fetched += ev.clusters_requested
+    stats.clusters_deduped += ev.clusters_union
+    stats.record(ev)
+    return ev
 
 
 @dataclasses.dataclass
@@ -202,6 +212,7 @@ class QuantizedFetch:
     ids: torch.Tensor         # (R, L) int32
     remap: torch.Tensor       # (B, P) int32 into the packed rows
     ready: Optional[torch.cuda.Event] = None   # copies done (CUDA only)
+    event: Optional[FetchEvent] = None         # this fetch's own stamps
 
     def tensors(self) -> tuple:
         return (self.q8, self.scale, self.norm2, self.cents, self.ids,
@@ -269,25 +280,27 @@ class QuantizedTieredPostings:
             raise RuntimeError(
                 f"fetch on released tier (epoch {self.epoch}): a batch was "
                 f"routed to a retired index version")
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         wanted, u, rows, remap, live = _plan_union(
             cids, mask, self._lut, self.q8.shape[0], pad_rows, bucket)
+        t_union = time.perf_counter()
         _, l, d = self.q8.shape
         pin = self.device.type == "cuda"
         packed_q8 = torch.empty((rows, l, d), dtype=torch.int8,
                                 pin_memory=pin)
-        np.take(self.q8, wanted, axis=0, out=packed_q8.numpy()[:u])
         packed_scale = torch.ones((rows,), dtype=torch.float32,
                                   pin_memory=pin)
-        np.take(self.scale, wanted, axis=0, out=packed_scale.numpy()[:u])
         packed_norm2 = torch.zeros((rows, l), dtype=torch.float32,
                                    pin_memory=pin)
-        np.take(self.norm2, wanted, axis=0, out=packed_norm2.numpy()[:u])
         packed_cent = torch.zeros((rows, d), dtype=torch.float32,
                                   pin_memory=pin)
-        np.take(self.centroids, wanted, axis=0, out=packed_cent.numpy()[:u])
         packed_ids = torch.full((rows, l), -1, dtype=torch.int32,
                                 pin_memory=pin)
+        t_alloc = time.perf_counter()
+        np.take(self.q8, wanted, axis=0, out=packed_q8.numpy()[:u])
+        np.take(self.scale, wanted, axis=0, out=packed_scale.numpy()[:u])
+        np.take(self.norm2, wanted, axis=0, out=packed_norm2.numpy()[:u])
+        np.take(self.centroids, wanted, axis=0, out=packed_cent.numpy()[:u])
         np.take(self.posting_ids, wanted, axis=0,
                 out=packed_ids.numpy()[:u])
         packed_remap = torch.from_numpy(remap)
@@ -295,11 +308,13 @@ class QuantizedTieredPostings:
             packed_remap = packed_remap.pin_memory()
         host = (packed_q8, packed_scale, packed_norm2, packed_cent,
                 packed_ids, packed_remap)
-        t1 = time.perf_counter()
+        t1, cpu_s = time.perf_counter(), time.thread_time() - c0
         dev, ready = _pinned_copy(host, self.device, self._stream)
         t2 = time.perf_counter()
         dev[1] = dev[1].reshape(rows, 1, 1)
         nbytes = int(sum(h.numel() * h.element_size() for h in host[:5]))
-        _record_fetch(self.stats, t0, t1, t2, rows, nbytes, int(live.sum()),
-                      u, u * self.cluster_bytes)
-        return QuantizedFetch(*dev, ready=ready)
+        ev = _record_fetch(self.stats, FetchEvent(
+            t0, t1, t2, rows, nbytes, clusters_requested=int(live.sum()),
+            clusters_union=u, union_bytes=u * self.cluster_bytes,
+            union_end=t_union, alloc_end=t_alloc, cpu_s=cpu_s))
+        return QuantizedFetch(*dev, ready=ready, event=ev)

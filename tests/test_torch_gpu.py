@@ -254,6 +254,66 @@ def test_small_build_and_serve_on_card_match_cpu(cuda, tmp_path):
                             tol=1e-5)
 
 
+def test_traced_build_and_serve_on_card_stamp_their_steps(cuda, tmp_path):
+    """A traced build on the card nests its spans with a K23 span a
+    lockstep step; served batches stamp the gather's steps in order and the
+    scan's device time (CUDA events), placed inside the host's scan
+    window, for the streamed q8 tier and the resident f32 index."""
+    from repro_torch.build.pipeline import BuildConfig, build_index
+    from repro_torch.core.llsp import LLSPConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.synthetic import PAPER_DATASETS, make_queries, \
+        make_vectors
+    from repro_torch.obs import Observability, check_well_nested
+    from repro_torch.runtime.pipeline import PrefetchPipeline, \
+        make_quantized_pipeline
+
+    spec = dataclasses.replace(PAPER_DATASETS["sift"], n=20000, dim=32)
+    x = make_vectors(spec)
+    q, topk = make_queries(spec, 128)
+    obs = Observability(1.0)
+    cfg = BuildConfig(max_cluster_size=48, cluster_len=64,
+                      coarse_per_task=5000,
+                      llsp=LLSPConfig(levels=(8, 16), n_ratio_features=8,
+                                      n_trees=20, max_depth=4))
+    idx, llsp, report = build_index(x, cfg, str(tmp_path / "b"), queries=q,
+                                    query_topk=np.minimum(topk, 20),
+                                    device=cuda, obs=obs)
+    names = [e[1] for e in obs.trace.snapshot() if e[0] == "X"]
+    assert names.count("stage1.k23") == sum(
+        st.steps for st in report.stage1_split) > 0
+    assert names.count("shard.h2d") == len(report.shard_stamps)
+    assert check_well_nested(obs.trace.export()["traceEvents"]) == []
+    scfg = SearchConfig(k=10, nprobe_max=16, pruning="llsp", n_ratio=8)
+    batches = [(q[i:i + 32], np.full(32, 10, np.int32))
+               for i in range(0, 128, 32)]
+    q8 = make_quantized_pipeline(idx, llsp, scfg, vectors=x,
+                                 flash_path=str(tmp_path / "f"), device=cuda)
+    resident = PrefetchPipeline(idx, llsp, scfg, device=cuda)
+    try:
+        for pipe in (q8, resident):
+            for res in pipe.run_pipelined(batches, depth=2):
+                t = res.times
+                window_ms = 1e3 * (t.scan_done - t.scan_dispatch)
+                assert 0.0 < t.scan_device_ms <= window_ms + 0.5
+                # the events place the scan inside the host's scan window
+                assert t.scan_dispatch <= t.scan_device_start
+                assert t.scan_device_start + 1e-3 * t.scan_device_ms \
+                    <= t.scan_done + 5e-4
+                assert t.plan_start <= t.plan_wait_start \
+                    < t.plan_wait_end <= t.plan_end
+                if pipe is q8:
+                    assert t.gather_start < t.union_end < t.alloc_end \
+                        < t.gather_end < t.stream_end
+                    assert t.gather_cpu_s >= 0.0   # in scheduler ticks
+                    assert 0.0 < t.rerank_read_wait_s \
+                        <= t.rerank_end - t.rerank_start
+    finally:
+        q8.close()
+        q8.flash.release()
+        resident.close()
+
+
 F32_CASES = [  # (C, L, D, B, P, dead, masked, dup, nan_dead, k2)
     (16, 8, 16, 8, 4, 0.0, 0.2, False, False, 10),
     (32, 16, 32, 6, 8, 0.3, 0.3, True, True, 10),     # ragged B, NaN dead

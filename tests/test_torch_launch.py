@@ -51,6 +51,23 @@ def test_run_single_node_serves_drills_and_drops_nothing(tmp_path, capsys):
     check_well_nested(events)
 
 
+def test_trace_out_holds_the_index_builds_spans(tmp_path, capsys):
+    """``--trace-out`` traces the deployed index's build beside the served
+    batches: its stages, the splitters' K23 steps, stage 3's fit, nested."""
+    from repro_torch.launch import run_single_node
+    from repro_torch.obs import check_well_nested
+
+    trace = tmp_path / "trace.json"
+    run_single_node(_args("--tier", "f32", "--no-quality", "--grouping",
+                          "fifo", "--trace-out", str(trace)))
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("ph") == "X"}
+    assert {"build", "build.stage1", "build.stage2", "build.stage3",
+            "stage1.split", "stage1.k23", "shard.assign", "llsp.fit",
+            "batch", "gather"} <= names
+    assert check_well_nested(events) == []
+
+
 def test_run_single_node_f32_tier_without_quality(capsys):
     from repro_torch.launch import run_single_node
 
