@@ -572,8 +572,8 @@ def k3_launch_count(sums, counts, reseed) -> int:
 
 
 def check_b2(case: str, k2: int, *args, chunks=(None,)) -> float:
-    """B2 against its plain version at each block count of ``chunks``
-    (None: the card's own count)."""
+    """B2 against its plain version by tile at each block count of
+    ``chunks`` (None: the card's own count), and by cluster."""
     import torch
 
     from repro_torch.kernels import ivf_scan as scan
@@ -581,17 +581,19 @@ def check_b2(case: str, k2: int, *args, chunks=(None,)) -> float:
     wd, wi = scan.ivf_scan_topk_plain(*args, k2=k2)
     err = 0.0
     s_len = scan.BQ * args[2].shape[1]
-    for n in chunks:
-        n = None if n is None else min(n, s_len)
-        gd, gi = scan.ivf_scan_topk_cuda(*args, k2=k2, chunks=n)
+    runs = [("by_tile", None if n is None else min(n, s_len))
+            for n in chunks] + [("by_cluster", None)]
+    for design, n in runs:
+        gd, gi = scan.ivf_scan_topk_cuda(*args, k2=k2, chunks=n,
+                                         design=design)
         torch.cuda.synchronize()
         if bool(torch.isnan(gd).any()):
             raise AssertionError(f"B2 {case}: NaN reached the candidates")
         err = max(err, candidates_match(gd.cpu(), gi.cpu(), wd.cpu(),
                                         wi.cpu(), F32_TOL,
-                                        f"B2 {case} chunks={n}"))
-    log(f"[kernels] B2 {case}: ok at chunks {list(chunks)} "
-        f"max_abs_err={err:.3g}")
+                                        f"B2 {case} {design} chunks={n}"))
+    log(f"[kernels] B2 {case}: ok by tile at chunks {list(chunks)} and by "
+        f"cluster, max_abs_err={err:.3g}")
     return err
 
 
@@ -5241,8 +5243,8 @@ def b2_work(tile_cids, qsel, l, d, b, k2):
 
 def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
     """B2 on one real phase-8 batch (packed union) and on one resident
-    batch (the whole index), each alone on a prebuilt plan and through the
-    wrapper."""
+    batch (the whole index), each alone on a prebuilt tile plan, through
+    the wrapper (the design ``b2_design`` picks) and by cluster."""
     import torch
 
     from repro_torch.core.search import _auto_ncand
@@ -5269,6 +5271,9 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
         f"by kernel: {split}); one block a tile {one_block:.4f} ms")
     wrapper = time_ms(lambda: scan.ivf_scan_topk_cuda(
         post, ids, remap, pmask, plan.queries_dev, k2=k2), n=100)
+    by_cluster = time_two_ways(lambda: scan.ivf_scan_topk_cuda(
+        post, ids, remap, pmask, plan.queries_dev, k2=k2,
+        design="by_cluster"), n=100)
     plain = time_ms(lambda: scan.ivf_scan_topk_plain(
         post, ids, remap, pmask, plan.queries_dev, k2=k2), n=10)
     _, l, d = post.shape
@@ -5283,6 +5288,9 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
         index_post, index_ids, rtc, rqs, rq, k2=k2), n=100)
     r_wrapper = time_ms(lambda: scan.ivf_scan_topk_cuda(
         index_post, index_ids, cids, mask, qd, k2=k2), n=100)
+    r_by_cluster = time_two_ways(lambda: scan.ivf_scan_topk_cuda(
+        index_post, index_ids, cids, mask, qd, k2=k2, design="by_cluster"),
+        n=100)
     r_plain = time_ms(lambda: scan.ivf_scan_topk_plain(
         index_post, index_ids, cids, mask, qd, k2=k2), n=10)
     r_bytes, r_flops, r_used, r_pairs = b2_work(rtc, rqs, l, d,
@@ -5299,7 +5307,13 @@ def b2_row(streamed: dict, resident: dict, kernel_errs: dict) -> dict:
                 blocks=tc.shape[0] * chunks,
                 tiles=tc.shape[0], chunks=chunks, split_ms=split,
                 one_block_a_tile_ms=one_block,
+                design=scan.b2_design(b, pmask.shape[1], post.shape[0], l,
+                                      d, k2),
+                by_cluster_ms=by_cluster,
                 resident={"ms": r_ms, "wrapper_ms": r_wrapper,
+                          "design": scan.b2_design(
+                              *cids.shape, index_post.shape[0], l, d, k2),
+                          "by_cluster_ms": r_by_cluster,
                           "plain_ms": r_plain, "bound_ms": r_bound,
                           "shape": f"B={qd.shape[0]} "
                                    f"C={index_post.shape[0]} "

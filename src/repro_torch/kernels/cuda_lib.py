@@ -13,7 +13,9 @@ returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 
 :data:`LAUNCHES` counts kernel launches per wrapper; each wrapper adds one
 right after its launch and nowhere else, so a run can show which kernels
-its main path went through.
+its main path went through.  B2 also counts the design it launched
+(``ivf_scan_topk.by_tile`` or ``ivf_scan_topk.by_cluster``) beside its one
+``ivf_scan_topk`` a call.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ivf_scan_q8_topk", "kmeans_assign_update", "kmeans_mstep",
            "ivf_scan_topk", "ivf_scan", "pairwise_l2",
-           "ivf_scan_clustermajor", "ivf_scan_q8", "kmeans_batched")
+           "ivf_scan_clustermajor", "ivf_scan_q8", "kmeans_batched",
+           "ivf_scan_topk.by_tile", "ivf_scan_topk.by_cluster")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "ivf_scan_topk_launch": [_P] * 10 + [_I] * 6 + [_P],
     "ivf_scan_topk_smem_bytes": [_I, _I, _I],
     "ivf_scan_topk_max_chunks": [_I, _I],
+    "ivf_scan_topk_by_cluster_launch": [_P] * 14 + [_I] * 7 + [_P],
+    "ivf_scan_topk_by_cluster_smem_bytes": [_I],
     "ivf_scan_launch": [_P] * 5 + [_I] * 5 + [_P],
     "pairwise_l2_launch": [_P] * 4 + [_I] * 5 + [_P],
     "ivf_scan_clustermajor_launch": [_P] * 5 + [_I] * 5 + [_P],
@@ -58,6 +63,7 @@ _SIGNATURES = {
 }
 _RESTYPES = {"ivf_scan_q8_topk_smem_bytes": ctypes.c_size_t,
              "ivf_scan_topk_smem_bytes": ctypes.c_size_t,
+             "ivf_scan_topk_by_cluster_smem_bytes": ctypes.c_size_t,
              "repro_cuda_error_string": ctypes.c_char_p}
 
 

@@ -7,10 +7,14 @@
   ||q||^2 - 2 q.p + ||p||^2 (clamped >= 0), merged into a running top-k2
   unique by id; a NaN distance of a live row empties the query's
   candidates at that slot (:func:`mask_through_last_nan`).
-  :func:`ivf_scan_topk_cuda` launches ``csrc/ivf_scan_topk.cu`` (a tile's
-  plan split over several blocks, then a merge of their partial top-k2);
-  :func:`ivf_scan_topk_plain` computes the same function with the same
-  plan and :func:`extract_topk`.
+  :func:`ivf_scan_topk_cuda` launches ``csrc/ivf_scan_topk.cu`` in one of
+  two designs that :func:`b2_design` picks from the shapes: "by_tile" (a
+  tile's plan split over several blocks, then a merge of their partial
+  top-k2) or "by_cluster" (the batch's plan inverted on the device by
+  :func:`plan_cluster_probes`, each probed cluster streamed once against
+  every query that probes it, one partial top-k2 a (query, slot), then a
+  merge a query); :func:`ivf_scan_topk_plain` computes the same function
+  with the tile plan and :func:`extract_topk`.
 * B6a ``ivf_scan``, the legacy scan: (B, P, L) distances, masked probes
   +inf.  :func:`ivf_scan_cuda` launches ``csrc/ivf_scan.cu``;
   :func:`ivf_scan_plain` is the plain version.
@@ -28,6 +32,7 @@ of the tensors.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +46,11 @@ MAX_K2 = 256
 MAX_D = 1024
 MAX_L = 1024
 MAX_SMEM = 232_448          # bytes of shared memory one block may use
+B2_DESIGNS = ("by_tile", "by_cluster")
+BY_CLUSTER_GROUP = 32       # queries a work item (the kernel's kG)
+BY_CLUSTER_MAX_P = 256      # probes a query may have there (its merge)
+BY_CLUSTER_ROWS_PER_PROBE = 16  # b2_design's constants, measured on the
+BY_CLUSTER_MIN_MACS = 1 << 27   # H100 (PERF.md, kernel table row 4)
 
 
 def plan_tile_probes(cids: torch.Tensor, mask: torch.Tensor, bq: int,
@@ -83,6 +93,71 @@ def plan_tile_probes(cids: torch.Tensor, mask: torch.Tensor, bq: int,
     qsel = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
     tile_cids = torch.clamp_max(sc, n_clusters - 1).to(torch.int32)
     return tile_cids, qsel
+
+
+class ClusterPlan(NamedTuple):
+    """The inverted plan of a (B, P) batch (:func:`plan_cluster_probes`).
+    The live (query, cluster) pairs, one per pair probed at least once,
+    sorted by (cluster, query), then the dead entries: ``pair_c`` (B*P,)
+    int32 the cluster (-1 where dead), ``pair_q`` the query, ``pair_slot``
+    the pair's rank among its query's clusters in ascending order (the slot
+    of :func:`plan_tile_probes`' order).  ``n_slots`` (B,) int32 each
+    query's live slots.  ``items`` (n_grid,) int32 the first pair of each
+    work item (a run of at most ``group`` pairs of one cluster), -1 past the
+    ``n_items`` (1,) int32 items; n_grid is :func:`cluster_grid`."""
+    pair_c: torch.Tensor
+    pair_q: torch.Tensor
+    pair_slot: torch.Tensor
+    n_slots: torch.Tensor
+    items: torch.Tensor
+    n_items: torch.Tensor
+
+
+def cluster_grid(b: int, p: int, n_clusters: int,
+                 group: int = BY_CLUSTER_GROUP) -> int:
+    """A bound on the work items of any (B, P) plan that the host knows
+    without reading the plan: a cluster's run of n pairs makes ceil(n /
+    group) <= n / group + 1 items, and at most min(R, B*P) clusters have a
+    run."""
+    return -(-b * p // group) + min(n_clusters, b * p)
+
+
+def plan_cluster_probes(cids: torch.Tensor, mask: torch.Tensor,
+                        n_clusters: int, group: int = BY_CLUSTER_GROUP
+                        ) -> ClusterPlan:
+    """The by-cluster design's plan (plain device code, no wait on the
+    host): cids clamped to [0, R) as :func:`plan_tile_probes` clamps them,
+    masked and negative probes dropped, each query's distinct clusters
+    ranked in ascending order (its slots), the pairs sorted by (cluster,
+    query) and each cluster's run cut into work items of ``group``."""
+    b, p = cids.shape
+    dev = cids.device
+    live = mask.bool() & (cids >= 0)
+    kdt = torch.int32 if max(n_clusters + 1, p) * b < 2 ** 31 \
+        else torch.int64
+    cl = torch.clamp(cids, 0, n_clusters - 1).to(kdt)
+    sc = torch.sort(torch.where(live, cl, n_clusters), dim=1).values
+    uniq = torch.ones_like(sc, dtype=torch.bool)
+    uniq[:, 1:] = sc[:, 1:] != sc[:, :-1]
+    uniq &= sc < n_clusters
+    slot = torch.cumsum(uniq, dim=1, dtype=torch.int32) - 1
+    n_slots = (slot[:, -1] + 1).contiguous()
+    dead = n_clusters * b
+    q = torch.arange(b, device=dev, dtype=kdt)[:, None]
+    keys, order = torch.sort(torch.where(uniq, sc * b + q, dead).reshape(-1))
+    cs = keys // b                           # sorted; dead entries R
+    pair_c = torch.where(keys < dead, cs, -1).to(torch.int32)
+    pair_q = (keys % b).to(torch.int32)
+    pair_slot = slot.reshape(-1)[order]
+    idx = torch.arange(b * p, device=dev, dtype=kdt)
+    run0 = torch.searchsorted(cs, cs)        # each pair's run start
+    is_item = (keys < dead) & ((idx - run0) % group == 0)
+    n_grid = cluster_grid(b, p, n_clusters, group)
+    dest = torch.where(is_item, torch.cumsum(is_item, 0) - 1, n_grid)
+    items = torch.full((n_grid + 1,), -1, dtype=torch.int32, device=dev)
+    items.scatter_(0, dest, idx.to(torch.int32))
+    return ClusterPlan(pair_c, pair_q, pair_slot, n_slots, items[:n_grid],
+                       is_item.sum(dtype=torch.int32).reshape(1))
 
 
 def extract_topk(cat_d: torch.Tensor, cat_i: torch.Tensor, k2: int
@@ -233,19 +308,47 @@ def b2_chunks(n_tiles: int, s_len: int, k2: int, dev) -> int:
         n_tiles, cuda_lib.library().ivf_scan_topk_max_chunks(s_len, k2), dev)
 
 
+def tile_rows(l: int, d: int) -> int:
+    """Rows the by-tile kernel scores at once (``chunk_rows`` of
+    ``csrc/ivf_scan_topk.cu``: its buffer of 64 x 132 floats over rows of D
+    + 4): 64 at D 128, 8 at D 960, where 16 of its 256 threads take dots."""
+    return max(1, min(l, 64 * 132 // (d + 4)))
+
+
+def b2_design(b: int, p: int, n_clusters: int, l: int, d: int,
+              k2: int) -> str:
+    """The B2 design for a batch of shapes the host knows: "by_cluster"
+    once the probes expected a cluster, B*P / R, reach
+    ``tile_rows(L, D) / BY_CLUSTER_ROWS_PER_PROBE`` (4 at D 128, 0.5 at D
+    960: the by-tile kernel slows as its row chunk narrows) and the batch
+    names at least ``BY_CLUSTER_MIN_MACS`` multiply-adds, B*P*L*D (below
+    that the by-tile design's whole call is shorter than the by-cluster
+    design's torch plan, about 1 ms of host time); "by_tile" otherwise, and
+    where the by-cluster design does not take the shape (P above its
+    merge's 256 slots, k2 above the register buffer)."""
+    if b * p == 0 or p > BY_CLUSTER_MAX_P or k2 > 32:
+        return "by_tile"
+    wide = b * p * BY_CLUSTER_ROWS_PER_PROBE >= n_clusters * tile_rows(l, d)
+    big = b * p * l * d >= BY_CLUSTER_MIN_MACS
+    return "by_cluster" if wide and big else "by_tile"
+
+
 def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
-                       k2: int, bq: int = BQ, chunks: int | None = None):
+                       k2: int, bq: int = BQ, chunks: int | None = None,
+                       design: str | None = None):
     """Launch B2 on the tensors' CUDA device (current stream).
 
     Takes postings (R, L, D) f32, posting_ids (R, L) int32, cids (B, P)
     int, mask (B, P) bool, queries (B, D) f32, all contiguous on one CUDA
     device.  Limits: bq == 8, 1 <= k2 <= 256, D % 4 == 0 and D <= 1024,
-    L <= 1024, postings 16-byte aligned, and the block's shared memory (a
-    chunk of rows plus the tile's queries and buffers) within 227 KB.
-    ``chunks`` is a test hook: it splits each tile's plan over that many
-    blocks (1 up to the kernel's limit, :func:`b2_chunks`); the serving
-    paths pass None, which takes :func:`b2_chunks`.  Anything else raises;
-    nothing falls back to the plain version."""
+    L <= 1024, postings 16-byte aligned; by tile, the block's shared memory
+    (a chunk of rows plus the tile's queries and buffers) within 227 KB; by
+    cluster, P <= 256.  :func:`b2_design` picks the design from the
+    shapes.  ``design`` and ``chunks`` are test hooks: ``design`` forces
+    one of :data:`B2_DESIGNS`; ``chunks`` splits each tile's plan over that
+    many blocks (1 up to the kernel's limit, :func:`b2_chunks`; by tile
+    only).  The serving paths pass neither.  Anything else raises; nothing
+    falls back to the plain version."""
     what = "ivf_scan_topk"
     dev = queries.device
     _check_common(what, dict(postings=postings, posting_ids=posting_ids,
@@ -256,18 +359,61 @@ def ivf_scan_topk_cuda(postings, posting_ids, cids, mask, queries, *,
              "posting_ids must be (R, L) int32")
     _require(bq == BQ, what, f"bq={bq}: the kernel tiles {BQ} queries")
     _require(1 <= k2 <= MAX_K2, what, f"k2={k2} outside [1, {MAX_K2}]")
-    lib = cuda_lib.library()
-    smem = lib.ivf_scan_topk_smem_bytes(l, d, k2)
-    _require(smem <= MAX_SMEM, what, f"needs {smem} B of shared memory")
-    b = queries.shape[0]
+    b, p = cids.shape
+    if design is None:
+        design = "by_tile" if chunks is not None \
+            else b2_design(b, p, r_count, l, d, k2)
+    _require(design in B2_DESIGNS, what, f"design={design!r}")
     if b == 0:
         return (torch.empty((0, k2), dtype=torch.float32, device=dev),
                 torch.empty((0, k2), dtype=torch.int32, device=dev))
+    if design == "by_cluster":
+        _require(chunks is None, what, "chunks splits the by-tile design")
+        _require(p <= BY_CLUSTER_MAX_P, what,
+                 f"P={p}: the by-cluster merge takes {BY_CLUSTER_MAX_P}")
+        return ivf_scan_topk_by_cluster(postings, posting_ids, cids, mask,
+                                        queries, k2=k2)
+    smem = cuda_lib.library().ivf_scan_topk_smem_bytes(l, d, k2)
+    _require(smem <= MAX_SMEM, what, f"needs {smem} B of shared memory")
     pc, pm, pq = _pad_tile(cids, mask, queries, bq)
     tile_cids, qsel = plan_tile_probes(pc, pm, bq, r_count)
     out_d, out_i = ivf_scan_topk_planned(postings, posting_ids, tile_cids,
                                          qsel, pq, k2=k2, chunks=chunks)
     return out_d[:b], out_i[:b]
+
+
+def ivf_scan_topk_by_cluster(postings, posting_ids, cids, mask, queries,
+                             *, k2: int):
+    """Launch B2's by-cluster design: :func:`plan_cluster_probes` on the
+    current stream, then the scan (a block per work item) and the merge (a
+    warp per query).  The inputs' limits are checked by
+    :func:`ivf_scan_topk_cuda`.  Returns ((B, k2), (B, k2))."""
+    what = "ivf_scan_topk"
+    dev = queries.device
+    r_count, l, d = postings.shape
+    b, p = cids.shape
+    out_d = torch.empty((b, k2), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k2), dtype=torch.int32, device=dev)
+    if b * p == 0:
+        return out_d.fill_(INF), out_i.fill_(-1)
+    if queries.data_ptr() % 16:              # 16-byte copies of its rows
+        queries = queries.clone()
+    plan = plan_cluster_probes(cids, mask, r_count)
+    part_d = torch.empty((b, p, k2), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, p, k2), dtype=torch.int32, device=dev)
+    part_nan = torch.empty((b, p), dtype=torch.int32, device=dev)
+    rc = cuda_lib.library().ivf_scan_topk_by_cluster_launch(
+        postings.data_ptr(), posting_ids.data_ptr(), queries.data_ptr(),
+        plan.pair_c.data_ptr(), plan.pair_q.data_ptr(),
+        plan.pair_slot.data_ptr(), plan.items.data_ptr(),
+        plan.n_items.data_ptr(), plan.n_slots.data_ptr(), part_d.data_ptr(),
+        part_i.data_ptr(), part_nan.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), plan.items.shape[0], b * p, b, l, d, p, k2,
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, what)
+    cuda_lib.LAUNCHES.add(what)
+    cuda_lib.LAUNCHES.add(what + ".by_cluster")
+    return out_d, out_i
 
 
 def ivf_scan_topk_planned(postings, posting_ids, tile_cids, qsel, queries,
@@ -308,6 +454,7 @@ def ivf_scan_topk_planned(postings, posting_ids, tile_cids, qsel, queries,
         cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, what)
     cuda_lib.LAUNCHES.add(what)
+    cuda_lib.LAUNCHES.add(what + ".by_tile")
     return out_d, out_i
 
 

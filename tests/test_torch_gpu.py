@@ -314,34 +314,95 @@ def test_traced_build_and_serve_on_card_stamp_their_steps(cuda, tmp_path):
         resident.close()
 
 
-F32_CASES = [  # (C, L, D, B, P, dead, masked, dup, nan_dead, k2)
-    (16, 8, 16, 8, 4, 0.0, 0.2, False, False, 10),
-    (32, 16, 32, 6, 8, 0.3, 0.3, True, True, 10),     # ragged B, NaN dead
-    (9, 16, 24, 5, 3, 0.5, 0.5, False, True, 40),     # k2 > live candidates
-    (20, 64, 1024, 3, 4, 0.1, 0.0, True, False, 256),  # D 1024, k2 256
-    (300, 128, 128, 32, 16, 0.05, 0.1, False, True, 24),  # the main shape
+F32_CASES = [  # (C, L, D, B, P, dead, masked, dup, nan_dead, k2, dup_ids)
+    (16, 8, 16, 8, 4, 0.0, 0.2, False, False, 10, False),
+    (32, 16, 32, 6, 8, 0.3, 0.3, True, True, 10, False),  # ragged B, NaN dead
+    (9, 16, 24, 5, 3, 0.5, 0.5, False, True, 40, False),  # k2 > live rows
+    (20, 64, 1024, 3, 4, 0.1, 0.0, True, False, 256, False),  # D 1024, k2 256
+    (300, 128, 128, 32, 16, 0.05, 0.1, False, True, 24, False),  # main shape
+    # the GIST bulk shape with a cut batch: ids repeated across clusters
+    (2000, 128, 960, 512, 256, 0.25, 0.1, True, True, 24, True),
 ]
 
 
-@pytest.mark.parametrize("case", F32_CASES)
-def test_f32_topk_kernel_matches_plain(cuda, case):
+def _b2_plain(arrays, k2, step=32):
+    """B2's plain version over slices of ``step`` queries (a query's result
+    does not depend on the others): its (B/8, 8 P, L, D) gather is 64 GB at
+    the cut GIST shape, 4 GB a slice."""
     from repro_torch.kernels import ivf_scan as tscan
 
-    c, l, d, b, p, dead, masked, dup, nan_dead, k2 = case
+    post, ids, cids, mask, q = arrays
+    outs = [tscan.ivf_scan_topk_plain(post, ids, cids[i:i + step],
+                                      mask[i:i + step], q[i:i + step], k2=k2)
+            for i in range(0, q.shape[0], step)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+@pytest.mark.parametrize("design", ["by_tile", "by_cluster"])
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_topk_kernel_matches_plain(cuda, case, design):
+    """B2 in each design the wrapper can pick (forced by its test hook)
+    against its plain version."""
+    from repro_torch.kernels import ivf_scan as tscan
+
+    c, l, d, b, p, dead, masked, dup, nan_dead, k2, dup_ids = case
     arrays = _dev(f32_case(c, l, d, b, p, seed=c, dead=dead, masked=masked,
-                           dup=dup, nan_dead=nan_dead), cuda)
-    gd, gi = tscan.ivf_scan_topk_cuda(*arrays, k2=k2)
-    wd, wi = tscan.ivf_scan_topk_plain(*arrays, k2=k2)
+                           dup=dup, nan_dead=nan_dead, dup_ids=dup_ids),
+                  cuda)
+    gd, gi = tscan.ivf_scan_topk_cuda(*arrays, k2=k2, design=design)
+    wd, wi = _b2_plain(arrays, k2)
     torch.cuda.synchronize()
     assert not torch.isnan(gd).any()
-    assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-4)
+    # the cut GIST shape: 32k candidates a query at distances near 1,800
+    assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-4,
+                            boundary=c >= 2000)
+
+
+def test_f32_topk_designs_agree_bit_for_bit_and_count_their_launches(cuda):
+    """The two designs take each dot, norm and distance in the same order,
+    so they give the same bits; two by-cluster launches give the same bits
+    (the merge's order depends on the data alone); each call counts one
+    ``ivf_scan_topk`` launch and one of its design."""
+    from repro_torch.kernels import ivf_scan as tscan
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    arrays = _dev(f32_case(300, 128, 128, 64, 32, seed=7, dead=0.1,
+                           masked=0.1, dup_ids=True), cuda)
+    before = LAUNCHES.snapshot()
+    a = tscan.ivf_scan_topk_cuda(*arrays, k2=24, design="by_cluster")
+    b = tscan.ivf_scan_topk_cuda(*arrays, k2=24, design="by_cluster")
+    t = tscan.ivf_scan_topk_cuda(*arrays, k2=24, design="by_tile")
+    torch.cuda.synchronize()
+    after = LAUNCHES.snapshot()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], t[0]) and torch.equal(a[1], t[1])
+    assert after["ivf_scan_topk"] - before["ivf_scan_topk"] == 3
+    assert after["ivf_scan_topk.by_cluster"] \
+        - before["ivf_scan_topk.by_cluster"] == 2
+    assert after["ivf_scan_topk.by_tile"] - before["ivf_scan_topk.by_tile"] \
+        == 1
+
+
+def test_f32_topk_wrapper_picks_its_design_from_the_shapes(cuda):
+    """Without the hook the wrapper launches the design that b2_design
+    names for the batch's (B, P, R, D, k2)."""
+    from repro_torch.kernels import ivf_scan as tscan
+    from repro_torch.kernels.cuda_lib import LAUNCHES
+
+    for r, b, p in ((1024, 32, 16), (64, 512, 64)):
+        arrays = _dev(f32_case(r, 128, 128, b, p, seed=r, dead=0.1), cuda)
+        want = tscan.b2_design(b, p, r, 128, 128, 24)
+        before = LAUNCHES.snapshot()[f"ivf_scan_topk.{want}"]
+        tscan.ivf_scan_topk_cuda(*arrays, k2=24)
+        assert LAUNCHES.snapshot()[f"ivf_scan_topk.{want}"] == before + 1
 
 
 def _b2_special_case(kind):
     """B2 inputs for one merge edge: "dup_id" gives one id to a row of a
     low and of a high cluster that query 0 probes, so the two copies land
-    in different chunks; "masked" masks every probe of query 3; "k2_big"
-    asks for more candidates than the live rows hold."""
+    in different chunks (by tile) or slots (by cluster); "masked" masks
+    every probe of query 3; "k2_big" asks for more candidates than the live
+    rows hold."""
     if kind == "k2_big":
         return f32_case(9, 16, 24, 5, 3, seed=40, dead=0.5, masked=0.5), 40
     post, ids, cids, mask, q = f32_case(40, 32, 64, 16, 8, seed=41,
@@ -355,19 +416,23 @@ def _b2_special_case(kind):
     return (post, ids, cids, mask, q), 24
 
 
-@pytest.mark.parametrize("chunks", [1, 2, 7, None, 64])
+@pytest.mark.parametrize("design,chunks", [
+    ("by_tile", 1), ("by_tile", 2), ("by_tile", 7), ("by_tile", None),
+    ("by_tile", 64), ("by_cluster", None)])
 @pytest.mark.parametrize("kind", ["dup_id", "masked", "k2_big"])
-def test_f32_topk_kernel_chunks_match_plain(cuda, kind, chunks):
-    """B2 splits a tile's plan over ``chunks`` blocks (None: the card's
-    own count) and merges their partial top-k2: the same candidates as the
-    plain version at one chunk and at many."""
+def test_f32_topk_kernel_chunks_match_plain(cuda, kind, design, chunks):
+    """B2 by tile splits a tile's plan over ``chunks`` blocks (None: the
+    card's own count), by cluster a query's slots over their clusters'
+    blocks, and merges their partial top-k2: the same candidates as the
+    plain version in each."""
     from repro_torch.kernels import ivf_scan as tscan
 
     arrays, k2 = _b2_special_case(kind)
     arrays = _dev(arrays, cuda)
     s_len = 8 * arrays[2].shape[1]
     n = None if chunks is None else min(chunks, s_len)
-    gd, gi = tscan.ivf_scan_topk_cuda(*arrays, k2=k2, chunks=n)
+    gd, gi = tscan.ivf_scan_topk_cuda(*arrays, k2=k2, chunks=n,
+                                      design=design)
     wd, wi = tscan.ivf_scan_topk_plain(*arrays, k2=k2)
     torch.cuda.synchronize()
     assert_candidates_match(gd.cpu(), gi.cpu(), wd.cpu(), wi.cpu(), tol=1e-4)
@@ -385,7 +450,8 @@ def test_fused_scans_follow_the_reference_on_a_nan_distance(cuda, kernel,
     """A NaN distance of a live row empties the query's candidates at that
     slot; later slots refill them (the reference's _extract_topk, which
     the plain versions follow): B2 and K1 at one chunk and at many, so the
-    NaN falls in the first and in the last chunk."""
+    NaN falls in the first and in the last chunk, and B2 by cluster, where
+    it falls in the query's first or last slot."""
     from repro_torch.kernels import ivf_scan as tscan
     from repro_torch.kernels import ivf_scan_q8 as tq8
 
@@ -395,8 +461,11 @@ def test_fused_scans_follow_the_reference_on_a_nan_distance(cuda, kernel,
         plant_nan(post, ids, cids, mask, where, q=1)
         arrays = _dev(arrays, cuda)
         want = tscan.ivf_scan_topk_plain(*arrays, k2=24)
-        gots = [tscan.ivf_scan_topk_cuda(*arrays, k2=24, chunks=n)
+        gots = [tscan.ivf_scan_topk_cuda(*arrays, k2=24, chunks=n,
+                                          design="by_tile")
                 for n in (1, 5, None)]
+        gots.append(tscan.ivf_scan_topk_cuda(*arrays, k2=24,
+                                             design="by_cluster"))
         tol = 1e-4
     else:
         arrays = q8_case(40, 32, 64, 16, 8, seed=43, dead=0.1, masked=0.1)

@@ -222,8 +222,9 @@ def test_ops_dispatch_f32_kernels_to_plain_versions_on_cpu():
 
 def test_f32_cuda_wrappers_refuse_cpu_tensors():
     arrays = _t(*f32_case(16, 8, 16, 8, 4, seed=6))
-    with pytest.raises(ValueError, match="needs CUDA"):
-        tscan.ivf_scan_topk_cuda(*arrays, k2=8)
+    for design in (None, *tscan.B2_DESIGNS):
+        with pytest.raises(ValueError, match="needs CUDA"):
+            tscan.ivf_scan_topk_cuda(*arrays, k2=8, design=design)
     post, _, cids, mask, q = arrays
     with pytest.raises(ValueError, match="needs CUDA"):
         tscan.ivf_scan_cuda(post, cids, mask, q)

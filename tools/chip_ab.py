@@ -46,6 +46,15 @@ script's, so every tree is read with the same yardstick:
 
 ``--serve-only`` skips the kernel times and the 100k builds: each tree
 then runs its 1M build, phase 4 and run (a) alone (about 40 s a tree).
+``--b2`` times only B2 (about two minutes a tree): through its wrapper
+``ivf_scan_topk_cuda`` at phase 6's serving shape (there also the kernel
+alone on a prebuilt tile plan) and on one GIST bulk batch (B 4,096, P 256
+with 30-256 live probes a query, 29,000 clusters of L 128 and D 960, a
+quarter of the rows dead, k2 24; seeded, made on the card), with the bound
+of each, the plain version's time (at the GIST batch on its first 8
+queries) and the device time of the scan and merge kernels; on a tree
+whose wrapper takes ``design=``, also each design over ``B2_GRID``, the
+shapes that set ``b2_design``'s constants.
 Prints one JSON object a tree, on a line starting ``AB``, and writes them
 all to ``--out`` as a JSON list.  Needs one card.
 """
@@ -223,7 +232,133 @@ def resident_scan_times(cs, ys, built) -> dict:
     return out
 
 
-def run_one(tree: str, rate: float, serve_only: bool = False) -> dict:
+B2_SERVE = (32, 16, 512, 128, 128)          # (B, P, R, L, D)
+B2_GIST = (4096, 256, 29_000, 128, 960)
+B2_GRID = [  # (B, P, R, L, D): B*P/R from 1/16 to 128 probes a cluster
+    (32, 16, 8192, 128, 128), (512, 16, 8192, 128, 128),
+    (1024, 16, 8192, 128, 128), (2048, 16, 8192, 128, 128),
+    (3072, 16, 8192, 128, 128), (1024, 64, 8192, 128, 128),
+    (4096, 64, 8192, 128, 128), (32, 16, 512, 128, 128),
+    (128, 16, 512, 128, 128), (256, 16, 4096, 128, 256),
+    (512, 16, 4096, 128, 256), (1024, 16, 4096, 128, 256),
+    (128, 16, 4096, 128, 512), (256, 16, 4096, 128, 512),
+    (512, 16, 4096, 128, 512), (32, 16, 4096, 128, 960),
+    (64, 16, 4096, 128, 960), (128, 16, 4096, 128, 960),
+    (256, 16, 4096, 128, 960), (512, 16, 4096, 128, 960),
+    (2048, 256, 4096, 128, 960)]
+
+
+def b2_batch(b, p, r, l, d, seed, dead=0.25):
+    """Seeded B2 inputs made on the card: postings N(0, 1), ids with a
+    share ``dead`` of -1, queries N(0, 1), each query's P distinct random
+    clusters of which the first nprobe (uniform in [30 P / 256, P]) are
+    live."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    post = torch.randn((r, l, d), generator=g, device=dev)
+    ids = torch.arange(r * l, dtype=torch.int32, device=dev).reshape(r, l)
+    ids[torch.rand((r, l), generator=g, device=dev) < dead] = -1
+    q = torch.randn((b, d), generator=g, device=dev)
+    cids = torch.rand((b, r), generator=g, device=dev).topk(
+        p, dim=1).indices.to(torch.int32)
+    nprobe = torch.randint(max(1, 30 * p // 256), p + 1, (b,), generator=g,
+                           device=dev)
+    mask = torch.arange(p, device=dev)[None, :] < nprobe[:, None]
+    return post, ids, cids.contiguous(), mask, q
+
+
+def b2_bound_ms(cids, mask, l, d, k2) -> dict:
+    """B2's bound on one batch, as anns_bench/roofline.py ``b2_call``
+    counts it: the union's rows and ids read once, the queries, the plan
+    and the candidates; a dot and the combine per live (probe, row), a
+    norm per union row and per query."""
+    b, p = cids.shape
+    probes = int(mask.sum())
+    union = int(cids[mask].unique().numel())
+    nbytes = (union * (l * d * 4 + 4 * l) + b * d * 4 + b * p * 5
+              + b * k2 * 8)
+    ops = probes * l * (2 * d + 3) + union * l * 2 * d + b * 2 * d
+    t_b, t_o = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "probes": probes, "union": union}
+
+
+def _adaptive(ys, fn) -> dict:
+    """time_two_ways with as many calls as fit about a second."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(3, min(200, int(1.0 / max(time.perf_counter() - t0, 1e-6))))
+    return dict(ys.time_two_ways(fn, n=n, warm=1), n=n)
+
+
+def b2_times(ys) -> dict:
+    """B2 through the tree's wrapper at B2_SERVE and B2_GIST, and on a tree
+    that has designs, each design over B2_GRID."""
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import ivf_scan as scan
+
+    k2 = 24
+    designs = "design" in inspect.signature(
+        scan.ivf_scan_topk_cuda).parameters
+    out = {}
+    for tag, shape in (("serve", B2_SERVE), ("gist", B2_GIST)):
+        b, p, r, l, d = shape
+        args = b2_batch(b, p, r, l, d, seed=r + b)
+        row = dict(b2_bound_ms(args[2], args[3], l, d, k2),
+                   wrapper=_adaptive(ys, lambda: scan.ivf_scan_topk_cuda(
+                       *args, k2=k2)))
+        if tag == "serve":   # the kernel alone on a prebuilt tile plan
+            pc, pm, pq = scan._pad_tile(args[2], args[3], args[4], scan.BQ)
+            tc, qs = scan.plan_tile_probes(pc, pm, scan.BQ, r)
+            row["alone"] = ys.time_two_ways(
+                lambda: scan.ivf_scan_topk_planned(args[0], args[1], tc, qs,
+                                                   pq, k2=k2), n=200)
+        n_plain = b if b <= 32 else 8
+        row["plain_ms"] = ys.time_ms(lambda: scan.ivf_scan_topk_plain(
+            args[0], args[1], args[2][:n_plain], args[3][:n_plain],
+            args[4][:n_plain], k2=k2), n=3, warm=1)
+        row["plain_queries"] = n_plain
+        if designs:
+            row["design"] = scan.b2_design(b, p, r, l, d, k2)
+        try:       # device ms a launch of the scan and of the merge
+            row["split_ms"] = ys.kernel_split_ms(
+                lambda: scan.ivf_scan_topk_cuda(*args, k2=k2),
+                ("f32_topk_kernel", "f32_topk_merge_kernel"), n=5)
+        except AssertionError as e:        # a tree without a merge there
+            row["split_ms"] = str(e)
+        out[tag] = row
+        del args
+        torch.cuda.empty_cache()
+    if designs:
+        grid = []
+        for b, p, r, l, d in B2_GRID:
+            args = b2_batch(b, p, r, l, d, seed=r + b + p)
+            row = {"shape": [b, p, r, l, d], "qpc": b * p / r,
+                   "live_qpc": int(args[3].sum()) / r,
+                   "design": scan.b2_design(b, p, r, l, d, k2)}
+            for design in scan.B2_DESIGNS:
+                row[design] = _adaptive(ys, lambda: scan.ivf_scan_topk_cuda(
+                    *args, k2=k2, design=design))
+            grid.append(row)
+            del args
+            torch.cuda.empty_cache()
+        out["grid"] = grid
+    return out
+
+
+def run_one(tree: str, rate: float, serve_only: bool = False,
+            b2_only: bool = False) -> dict:
     tree = os.path.abspath(tree)
     ys = _yardstick()
     time_two_ways = ys.time_two_ways
@@ -244,6 +379,9 @@ def run_one(tree: str, rate: float, serve_only: bool = False) -> dict:
     card = cs.phase_device()["card"]
     cuda_lib.build_info()
     out = {"tree": tree, "card": card, "kernels": {}}
+    if b2_only:
+        out["b2"] = b2_times(ys)
+        return out
     work = tempfile.mkdtemp(prefix="chip_ab_")
     if not serve_only:
         out["kernels"] = kernel_times(cs, time_two_ways)
@@ -281,11 +419,13 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--serve-only", action="store_true",
                     help="only the build, phase 4 and the engine run (a)")
+    ap.add_argument("--b2", action="store_true",
+                    help="only B2's times (serving, GIST, design grid)")
     ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        print("AB " + json.dumps(run_one(a.one, a.rate, a.serve_only)),
-              flush=True)
+        print("AB " + json.dumps(run_one(a.one, a.rate, a.serve_only,
+                                         a.b2)), flush=True)
         return 0
     if not a.tree:
         ap.error("give at least one --tree")
@@ -294,7 +434,8 @@ def main() -> int:
         t0 = time.perf_counter()
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--one", tree, "--rate", str(a.rate)]
-                           + ["--serve-only"] * a.serve_only,
+                           + ["--serve-only"] * a.serve_only
+                           + ["--b2"] * a.b2,
                            capture_output=True, text=True)
         sys.stderr.write(p.stderr[-4000:])
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
