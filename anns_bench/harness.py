@@ -41,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import check, datagen, loadgen, reference
+from . import check, datagen, host, loadgen, reference
 from .trace import DeviceTrace, Profile
 
 HERE = Path(__file__).resolve().parent
@@ -125,67 +125,92 @@ class Run:
 # ---------------------------------------------------------------- drivers
 class Client:
     """The callers' side of a serving window: submits through the engine,
-    collects every completion, one record per request."""
+    collects every completion, one record per request.
 
-    def __init__(self, eng, name: str, pool: np.ndarray, topk: int):
+    The records are rows of arrays, grown by doubling; the answers' ids
+    are kept as the engine's arrays, a list a poll, and laid out by
+    :meth:`into` once the window has closed.  The engine numbers its
+    requests one after another, so a completion's record is its request
+    id less that of record 0; a submission that breaks the numbering
+    raises."""
+
+    FIELDS = {"due": (np.float64, 0.0), "done": (np.float64, np.inf),
+              "ok": (bool, False), "rows": (np.int64, 0),
+              "nprobe": (np.int64, 0)}
+
+    def __init__(self, eng, name: str, pool: np.ndarray, topk: int,
+                 capacity: int = 1 << 16):
         self.eng, self.name, self.pool, self.topk = eng, name, pool, topk
-        self.due: list = []
-        self.rows: list = []
-        self.done: list = []
-        self.ok: list = []
-        self.nprobe: list = []
-        self.ids: list = []
-        self.slot: dict = {}             # req_id -> record index
+        self.n = 0                       # records
+        self.outstanding = 0             # submitted, not yet completed
+        self.rid0: Optional[int] = None  # request id of record 0
+        for f, (dtype, fill) in self.FIELDS.items():
+            setattr(self, f, np.full(capacity, fill, dtype))
+        self.answers: list = []          # (records, their ids) a poll
         # completions carry the engine's clock; records use the host's
         self.off = time.perf_counter() - eng.clock()
 
-    @property
-    def outstanding(self) -> int:
-        return len(self.slot)
+    def _grow(self, n: int) -> None:
+        cap = len(self.rows)
+        if n <= cap:
+            return
+        for f, (dtype, fill) in self.FIELDS.items():
+            new = np.full(max(n, 2 * cap), fill, dtype)
+            new[:self.n] = getattr(self, f)[:self.n]
+            setattr(self, f, new)
 
-    def submit(self, row: int, due: float, topk: Optional[int] = None
-               ) -> int:
-        i = len(self.rows)
-        self.rows.append(row)
-        self.due.append(due)
-        self.done.append(float("inf"))
-        self.ok.append(False)
-        self.nprobe.append(0)
-        self.ids.append(None)
-        rid = self.eng.submit(self.pool[row], topk or self.topk,
-                              index=self.name, block=True)
-        if rid < 0:
+    def submit(self, rows, due: float, topk: Optional[int] = None) -> int:
+        """Submit the pool rows ``rows`` in order, one ``eng.submit`` each,
+        all due at ``due``; returns the first one's record."""
+        rows = np.asarray(rows, np.int64)
+        i0, n = self.n, len(rows)
+        self._grow(i0 + n)
+        self.rows[i0:i0 + n] = rows
+        self.due[i0:i0 + n] = due
+        sub, pool, k, name = self.eng.submit, self.pool, topk or self.topk, \
+            self.name
+        rids = np.array([sub(pool[r], k, index=name, block=True)
+                         for r in rows.tolist()], np.int64)
+        if (rids < 0).any():
             raise RuntimeError("the engine refused a request")
-        self.slot[rid] = i
-        return i
+        if self.rid0 is None:
+            self.rid0 = int(rids[0]) - i0
+        if (rids != np.arange(i0, i0 + n) + self.rid0).any():
+            raise RuntimeError("the engine's request ids are not consecutive")
+        self.n += n
+        self.outstanding += n
+        return i0
 
-    def poll(self, timeout: float) -> list[int]:
+    def poll(self, timeout: float) -> np.ndarray:
         """Records completed since the last poll."""
         self.eng.qp.wait_completions(1, timeout=timeout)
-        out = []
-        for c in self.eng.qp.poll():
-            i = self.slot.pop(c.req_id)
-            self.done[i] = c.completed + self.off
-            self.ok[i] = c.status == "ok" and c.ids is not None
-            self.nprobe[i] = c.nprobe
-            self.ids[i] = c.ids
-            out.append(i)
-        return out
+        comps = self.eng.qp.poll()
+        if not comps:
+            return np.zeros(0, np.int64)
+        i = np.array([c.req_id for c in comps], np.int64) - self.rid0
+        if (i < 0).any() or (i >= self.n).any() or \
+                np.isfinite(self.done[i]).any():
+            raise RuntimeError("a completion of no outstanding request")
+        self.done[i] = np.array([c.completed for c in comps]) + self.off
+        self.ok[i] = [c.status == "ok" and c.ids is not None for c in comps]
+        self.nprobe[i] = [c.nprobe for c in comps]
+        self.answers.append((i, [c.ids for c in comps]))
+        self.outstanding -= len(comps)
+        return i
 
     def wait_all(self, until: float) -> None:
         while self.outstanding and time.perf_counter() < until:
             self.poll(0.05)
 
     def into(self, run: Run) -> None:
-        k = self.topk
-        run.due = np.asarray(self.due)
-        run.done = np.asarray(self.done)
-        run.ok = np.asarray(self.ok)
-        run.rows = np.asarray(self.rows, np.int64)
-        run.nprobe = np.asarray(self.nprobe, np.int64)
-        run.ids = np.stack([np.full(k, -1, np.int64) if a is None
-                            else np.asarray(a[:k], np.int64)
-                            for a in self.ids])
+        n, k = self.n, self.topk
+        for f in self.FIELDS:
+            setattr(run, f, getattr(self, f)[:n].copy())
+        run.ids = np.full((n, k), -1, np.int64)
+        for i, ids in self.answers:
+            got = [j for j, a in enumerate(ids) if a is not None]
+            if got:
+                run.ids[i[got]] = np.stack([ids[j][:k] for j in got])
 
 
 def closed_loop(client: Client, order: np.ndarray, callers: int, block: int,
@@ -193,8 +218,11 @@ def closed_loop(client: Client, order: np.ndarray, callers: int, block: int,
                 n_blocks: Optional[int] = None) -> int:
     """Closed-loop callers until ``t_end`` (or ``n_blocks`` blocks are
     issued); returns the next position in ``order``.  Does not wait for
-    the last blocks."""
-    left, owner = [0] * callers, {}
+    the last blocks.  A block is ``block`` consecutive records, so a
+    completion's block follows from its record; the callers are alike, so
+    a block that completes is followed by the next."""
+    r0 = client.n
+    left: dict = {}              # block -> requests not yet completed
     issued = 0
 
     def more() -> bool:
@@ -202,24 +230,27 @@ def closed_loop(client: Client, order: np.ndarray, callers: int, block: int,
             return issued < n_blocks
         return time.perf_counter() < t_end
 
-    def issue(c: int) -> None:
+    def issue() -> None:
         nonlocal pos, issued
-        t = time.perf_counter()
-        for j in range(block):
-            owner[client.submit(int(order[(pos + j) % len(order)]), t)] = c
+        rows = order[np.arange(pos, pos + block) % len(order)]
+        left[(client.submit(rows, time.perf_counter()) - r0) // block] = block
         pos += block
-        left[c] = block
         issued += 1
 
-    for c in range(callers):
+    for _ in range(callers):
         if more():
-            issue(c)
+            issue()
     while more():
-        for i in client.poll(0.01):
-            c = owner.pop(i)
-            left[c] -= 1
-            if left[c] == 0 and more():
-                issue(c)
+        done = client.poll(0.01)
+        if not done.size:
+            continue
+        blocks, counts = np.unique((done - r0) // block, return_counts=True)
+        for b, n in zip(blocks.tolist(), counts.tolist()):
+            left[b] -= n
+            if left[b] == 0:
+                del left[b]
+                if more():
+                    issue()
     return pos
 
 
@@ -234,7 +265,7 @@ def open_loop(client: Client, arrivals: list, t0: float) -> float:
                 break
             client.poll(min(wait, 0.002))
         late = max(late, time.perf_counter() - due)
-        client.submit(a.qrow % len(client.pool), due, topk=a.topk)
+        client.submit([a.qrow % len(client.pool)], due, topk=a.topk)
         client.poll(0.0)
     return late
 
@@ -312,6 +343,7 @@ def serve_cell(run: Run, sysm, dev, tmp: str) -> dict:
     prof = Profile() if run.traced else None
     if prof:
         prof.__enter__()
+    h0 = host.reading()
     w0 = time.perf_counter()
     w1 = w0 + run.seconds
     if tr["kind"] == "closed":
@@ -324,6 +356,7 @@ def serve_cell(run: Run, sysm, dev, tmp: str) -> dict:
         run.info["generator_late_s"] = open_loop(client, arrivals, w0)
         run.info["unanswered_at_close"] = client.outstanding
     client.wait_all(w1 + LATE_S)
+    run.info["host"] = host.window_use(h0)
     eng.stop()
     if prof:
         prof.__exit__(None, None, None)
@@ -332,6 +365,12 @@ def serve_cell(run: Run, sysm, dev, tmp: str) -> dict:
     run.engine = eng.stats
     run.batches, run.plans = rec.batches, rec.plans
     client.into(run)
+    run.info["host"]["caller_us_per_request"] = \
+        run.info["host"]["caller_cpu_s"] / max(run.rows.size, 1) * 1e6
+    # answers a second in each 5 s of the window: a run that is slow all
+    # through, or one that slows at a moment
+    run.info["answered_per_s"] = (np.histogram(
+        run.done, np.arange(w0, w1 + 1e-9, 5.0))[0] / 5.0).tolist()
     if prof:
         run.trace = prof.result(run.window)
     peak = _memory_peak(dev)
@@ -408,6 +447,7 @@ def build_cell(run: Run, sysm, dev, tmp: str) -> dict:
     prof = Profile() if run.traced else None
     if prof:
         prof.__enter__()
+    h0 = host.reading()
     w0 = time.perf_counter()
     kept = []
     try:
@@ -426,6 +466,7 @@ def build_cell(run: Run, sysm, dev, tmp: str) -> dict:
     finally:
         if k23:
             k23.close()
+    run.info["host"] = host.window_use(h0)
     if prof:
         prof.__exit__(None, None, None)
     run.window = (w0, run.builds[-1]["end"])

@@ -41,9 +41,19 @@ def power_limit() -> str:
         return "not read"
 
 
-def setup(root: Path) -> Path:
+def setup(root: Path) -> tuple[Path, dict]:
     """The process's environment for a run from checkout ``root``; returns
-    the checkout's cache directory."""
+    the checkout's cache directory and where the process was placed."""
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root))
+    from anns_bench import host
+
+    # before any thread starts: the card's NUMA node, one CPU a core, so
+    # two hot threads never share a core or run across the sockets
+    allowed = os.sched_getaffinity(0)
+    cpus, how = host.placement(host.bus_id(), allowed)
+    os.sched_setaffinity(0, cpus)
+    placed = {"cpus": cpus, "how": how, "allowed": sorted(allowed)}
     # caches live inside the checkout, at fixed paths
     cache = root / ".bench_cache"
     os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
@@ -54,12 +64,10 @@ def setup(root: Path) -> Path:
     # eight of them the tiered cell's q/s spread 22% between runs)
     for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
         os.environ[var] = "1"
-    sys.path.insert(0, str(root / "src"))
-    sys.path.insert(0, str(root))
     import torch
 
     torch.set_num_threads(1)
-    return cache
+    return cache, placed
 
 
 def main(argv=None) -> int:
@@ -75,7 +83,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     root = Path.cwd()
-    cache = setup(root)
+    cache, placed = setup(root)
 
     import torch
 
@@ -117,9 +125,12 @@ def main(argv=None) -> int:
         device["window_s"] = tr.window_s
         line["breakdown"] = {"device_ops": tr.top_ops(),
                              "idle_gaps": tr.idle_by_stage(
-                                 trace.host_stages(run))}
+                                 trace.host_stages(run)),
+                             "idle_by_span": run.info.get(
+                                 "idle_by_span", [])[:10]}
     line["check"] = res["check"]
-    info = {"card": power_limit(), "setup_s": run.setup_s, **run.info}
+    info = {"card": power_limit(), "placement": placed,
+            "setup_s": run.setup_s, **run.info}
     print(f"[run] {args.workload} seed {args.seed}: {json.dumps(info)}",
           file=sys.stderr)
     for name, (value, limit) in res["check"].items():
